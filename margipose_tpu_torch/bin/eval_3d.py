@@ -1,0 +1,287 @@
+#!/usr/bin/env python3
+"""Calculate 3D evaluation metrics for a trained model on the card.
+
+Counterpart of ``margipose_tpu/bin/eval_3d.py`` (reference:
+src/margipose/bin/eval_3d.py)::
+
+    python -m margipose_tpu_torch.bin.eval_3d --model FILE.pth \\
+        --dataset synthetic-64 --batch-size 32 [--device cpu]
+
+Each batch is padded to ``--batch-size``, uploaded, and run through the
+forward pass and the masked loss under ``torch.inference_mode()``. Results
+come back to the host in a window of in-flight batches: batch k is read only
+after batches k+1..k+W have been enqueued, so the host-side geometry overlaps
+the device instead of syncing every batch. Device time per batch comes from
+CUDA events (host clock on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import sys
+from time import perf_counter
+
+import numpy as np
+import torch
+
+from margipose_tpu_torch import resolve_device
+from margipose_tpu_torch.checkpoint import load_model
+from margipose_tpu_torch.data.get_dataset import get_dataset
+from margipose_tpu_torch.data.loader import make_dataloader
+from margipose_tpu_torch.eval import gather_3d_metrics, prepare_for_3d_evaluation
+from margipose_tpu_torch.geometry.coords import ensure_homogeneous
+from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc, VNect_Common_Skeleton
+from margipose_tpu_torch.models import data_specs_for_desc
+from margipose_tpu_torch.models.margipose import margipose_masked_loss
+from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
+
+METRICS = ('aligned_auc', 'aligned_mpjpe', 'aligned_pck', 'auc', 'mpjpe', 'pck')
+
+
+def parse_args(argv):
+    parser = argparse.ArgumentParser(
+        prog='margipose-torch-eval', description='3D human pose model evaluator',
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument('--model', type=str, metavar='FILE', required=True,
+                        help='path to a reference-format .pth model file')
+    parser.add_argument('--dataset', type=str, metavar='DS', default='synthetic-64',
+                        help='dataset to evaluate on')
+    parser.add_argument('--batch-size', type=int, metavar='N', default=1,
+                        help='examples per forward pass; the tail batch is padded')
+    parser.add_argument('--precision', type=str, default='float32', choices=['float32'],
+                        help='compute dtype; float32 (TF32 off) is the checkpoint-parity mode')
+    parser.add_argument('--num-workers', type=int, metavar='N', default=0,
+                        help='loader threads preparing upcoming batches')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="torch device; 'cpu' runs the plain paths on the host")
+    return parser.parse_args(argv)
+
+
+def padded_batches(loader, batch_size):
+    """Host batches with the tail padded to ``batch_size`` by repeating its
+    last example; padding rows are masked out of the loss."""
+    for batch in loader:
+        n_real = int(np.asarray(batch['valid_depth']).shape[0])
+        pad = max(batch_size - n_real, 0)
+
+        def _pad(arr, dtype):
+            arr = np.asarray(arr, dtype)
+            if pad:
+                arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
+            return np.ascontiguousarray(arr)
+
+        out = dict(batch)
+        out['n_real'] = n_real
+        out['input'] = _pad(batch['input'], np.float32)
+        out['target'] = _pad(batch['target'][..., :3], np.float32)
+        out['valid_depth'] = _pad(batch['valid_depth'], np.int64)
+        out['joint_mask'] = _pad(batch['joint_mask'], np.float32)
+        out['joint_mask'][n_real:] = 0
+        yield out
+
+
+class _Clock:
+    """CUDA events on the card, the host clock on the CPU (where every op
+    has finished when it returns)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == 'cuda'
+
+    def mark(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return perf_counter()
+
+    def wait(self, mark):
+        if self.cuda:
+            mark.synchronize()
+
+    def seconds(self, start, end):
+        return start.elapsed_time(end) / 1000.0 if self.cuda else end - start
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(arr)
+    if device.type == 'cuda':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    if t.device.type == 'cuda':
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+    return t.clone()
+
+
+def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
+                       drain_window=4, print_progress=False):
+    """One prediction per real example (reference: src/margipose/bin/eval_3d.py:48-94).
+
+    ``forward(images NCHW, target, mask, valid_depth) -> (xyz, loss)``. Each
+    batch's first prediction carries the batch's device time per real
+    example and its loss (weighted by ``loss_n`` real examples)."""
+    clock = _Clock(device)
+    batches = padded_batches(loader, batch_size)
+    if print_progress:
+        try:
+            from tqdm import tqdm
+
+            batches = tqdm(batches, total=len(loader), leave=True, ascii=True)
+        except ImportError:
+            pass
+
+    def _drain(entry):
+        clock.wait(entry['done'])
+        xyz = entry['xyz'].numpy().astype(np.float64)
+        loss = float(entry['loss'])
+        n_real = entry['n_real']
+        seconds = clock.seconds(entry['start'], entry['end'])
+        for i, norm_pred in enumerate(ensure_homogeneous(xyz[:n_real], d=3)):
+            expected, actual = prepare_for_3d_evaluation(
+                entry['original_skel'][i], norm_pred, loader.dataset,
+                entry['camera_intrinsic'][i], entry['transform_opts'][i],
+                known_depth=known_depth)
+            fr = entry['frame_ref']
+            yield dict(expected=expected, actual=actual,
+                       frame_ref=None if fr is None else (
+                           fr[i] if isinstance(fr, list) else {k: np.asarray(v)[i] for k, v in fr.items()}),
+                       inference_time=seconds / n_real if i == 0 else None,
+                       loss=loss if i == 0 else None, loss_n=n_real)
+
+    pending = []
+    for batch in batches:
+        images = _to_device(batch['input'], device).permute(0, 3, 1, 2).contiguous()
+        target = _to_device(batch['target'], device)
+        mask = _to_device(batch['joint_mask'], device)
+        valid_depth = _to_device(batch['valid_depth'], device)
+        start = clock.mark()
+        xyz, loss = forward(images, target, mask, valid_depth)
+        end = clock.mark()
+        # only the small result copies and host metadata stay in flight
+        pending.append(dict(
+            xyz=_to_host(xyz), loss=_to_host(loss), done=clock.mark(), start=start, end=end,
+            n_real=batch['n_real'], original_skel=batch['original_skel'],
+            camera_intrinsic=batch['camera_intrinsic'],
+            transform_opts=batch['transform_opts'], frame_ref=batch.get('frame_ref')))
+        if len(pending) > drain_window:
+            yield from _drain(pending.pop(0))
+    for entry in pending:
+        yield from _drain(entry)
+
+
+def run_evaluation_3d(forward, loader, included_joints, device, known_depth=False,
+                      batch_size=1, print_progress=False):
+    """(reference: src/margipose/bin/eval_3d.py:97-118)
+
+    Returns (rows, stats): ``rows`` maps seq_id, activity_id and each metric
+    to a per-example list; ``stats`` has the median device time per example,
+    the mean loss, the number of batches run and each one's device seconds."""
+    rows = {k: [] for k in ('seq_id', 'activity_id') + METRICS}
+    loss_meter, time_meter, batch_seconds = MeanValueMeter(), MedianValueMeter(), []
+    for pred in obtain_predictions(forward, loader, device, known_depth, batch_size,
+                                   print_progress=print_progress):
+        if pred['inference_time'] is not None:
+            time_meter.add(pred['inference_time'])
+            batch_seconds.append(pred['inference_time'] * pred['loss_n'])
+        if pred['loss'] is not None:
+            loss_meter.add(pred['loss'], pred['loss_n'])
+        fr = pred['frame_ref']
+        rows['seq_id'].append(f"TS{fr['subject_id']}/Seq{fr['sequence_id']}" if fr else '-')
+        rows['activity_id'].append(fr['activity_id'] if fr else '-')
+        for name, value in gather_3d_metrics(pred['expected'], pred['actual'],
+                                             included_joints).items():
+            rows[name].append(value)
+    stats = dict(median_inference_time=time_meter.value(), mean_loss=loss_meter.value(),
+                 batches=len(batch_seconds), batch_seconds=batch_seconds)
+    return rows, stats
+
+
+def _markdown(key, groups):
+    """Markdown table: one row per group, the mean of each metric."""
+    lines = ['| ' + ' | '.join((key,) + METRICS) + ' |',
+             '|' + '---|' * (len(METRICS) + 1)]
+    for name, values in groups.items():
+        lines.append('| ' + ' | '.join(
+            [str(name)] + [f'{float(np.mean(values[m])):.6g}' for m in METRICS]) + ' |')
+    return '\n'.join(lines)
+
+
+def metric_tables(rows) -> str:
+    """The JAX bin's three tables: by sequence, by activity, overall."""
+    def grouped(key):
+        groups = {}
+        for i, name in enumerate(rows[key]):
+            g = groups.setdefault(name, {m: [] for m in METRICS})
+            for m in METRICS:
+                g[m].append(rows[m][i])
+        return dict(sorted(groups.items(), key=lambda kv: str(kv[0])))
+
+    overall = {'0': {m: rows[m] for m in METRICS}}
+    return '\n'.join(['### By sequence\n', _markdown('seq_id', grouped('seq_id')),
+                      '\n### By activity\n', _markdown('activity_id', grouped('activity_id')),
+                      '\n### Overall\n', _markdown('', overall)])
+
+
+def overall_metrics(rows) -> dict:
+    return {m: float(np.mean(rows[m])) for m in METRICS}
+
+
+def make_forward(model, pixelwise_loss):
+    def forward(images, target, mask, valid_depth):
+        with torch.inference_mode():
+            xyz, out = model(images)
+            loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss)
+        return xyz.float(), loss
+    return forward
+
+
+def set_float32_parity_mode():
+    """Full float32 on the card: cuDNN convolutions otherwise run in TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def main(argv=None):
+    args = parse_args(sys.argv[1:] if argv is None else argv)
+    random.seed(12345)
+    np.random.seed(12345)
+    device = resolve_device(args.device)
+    set_float32_parity_mode()
+    print('Precision: float32, TF32 off for convolutions and matmuls (checkpoint parity)')
+
+    model, model_desc = load_model(args.model, device)
+    dataset = get_dataset(args.dataset, data_specs_for_desc(model_desc), use_aug=False)
+    loader = make_dataloader(dataset, batch_size=args.batch_size, num_workers=args.num_workers)
+
+    if args.dataset.startswith('h36m-'):
+        known_depth = True
+        included_joints = list(range(CanonicalSkeletonDesc.n_joints))
+    else:
+        known_depth = False
+        included_joints = [
+            CanonicalSkeletonDesc.joint_names.index(n) for n in VNect_Common_Skeleton]
+    print(f'Use ground truth root joint depth? {known_depth}')
+    print(f'Number of joints in evaluation: {len(included_joints)}')
+
+    forward = make_forward(model, model_desc['settings'].get('pixelwise_loss', 'jsd'))
+    rows, stats = run_evaluation_3d(forward, loader, included_joints, device,
+                                    known_depth=known_depth, batch_size=args.batch_size,
+                                    print_progress=True)
+    print(metric_tables(rows))
+    t_med = stats['median_inference_time']
+    print('\nmedian inference time: ' + (f'{t_med:.6f}s per example' if t_med else 'n/a'))
+    if stats['batches']:
+        total = sum(stats['batch_seconds'])
+        print(f"{'device' if device.type == 'cuda' else 'host'} time per batch of "
+              f"{args.batch_size}: " + ', '.join(f'{s * 1e3:.3f}' for s in stats['batch_seconds'])
+              + f" ms; {len(rows['mpjpe']) / total:.1f} images/s over {stats['batches']} batches")
+    print(f"mean loss: {stats['mean_loss']}")
+    return rows, stats
+
+
+if __name__ == '__main__':
+    main()

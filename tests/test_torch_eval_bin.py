@@ -1,0 +1,131 @@
+"""The port's eval bin end to end against the JAX eval bin, on the CPU.
+
+One small checkpoint (inceptionv4, 2 stages, 64 px) is exported from a JAX
+MargiPose to the reference ``.pth`` format. The JAX bin
+(``margipose_tpu.bin.eval_3d.main``) and the port's
+(``margipose_tpu_torch.bin.eval_3d.main --device cpu``) both evaluate it on
+``synthetic-4`` at batch 2; their overall metrics and mean loss must agree.
+The port's drain window is also pinned as tests/test_eval_drain.py pins the
+JAX one: a scheduling detail that never changes the predictions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import margipose_tpu.bin.eval_3d as jax_eval_3d
+import margipose_tpu_torch.bin.eval_3d as eval_3d
+from margipose_tpu.train.torch_import import export_state_dict
+from test_torch_weights import jax_margipose, small_desc
+
+METRICS = eval_3d.METRICS
+
+
+@pytest.fixture(scope='module')
+def checkpoint(tmp_path_factory):
+    desc = small_desc()
+    _, variables = jax_margipose(desc, seed=4)
+    path = str(tmp_path_factory.mktemp('ckpt') / 'small.pth')
+    state = {k: torch.from_numpy(np.asarray(v)) for k, v in export_state_dict(variables).items()}
+    torch.save({'state_dict': state, 'model_desc': desc}, path)
+    return path
+
+
+def test_eval_bin_matches_jax(checkpoint, monkeypatch, capsys):
+    import margipose_tpu.native as native
+
+    # the port has the PIL warp only; hold the JAX side to the same pixels
+    monkeypatch.setattr(native, 'available', lambda: False)
+    captured = {}
+    run = jax_eval_3d.run_evaluation_3d
+
+    def capture(*args, **kwargs):
+        captured['df'], captured['stats'] = run(*args, **kwargs)
+        return captured['df'], captured['stats']
+
+    monkeypatch.setattr(jax_eval_3d, 'run_evaluation_3d', capture)
+    args = ['--model', checkpoint, '--dataset', 'synthetic-4', '--batch-size', '2']
+    jax_eval_3d.main(['eval'] + args, None)
+    rows, stats = eval_3d.main(args + ['--device', 'cpu'])
+    printed = capsys.readouterr().out
+    assert '### Overall' in printed and 'mean loss' in printed
+
+    expected = captured['df'][list(METRICS)].mean()
+    got = eval_3d.overall_metrics(rows)
+    assert len(rows['mpjpe']) == len(captured['df']) == 4
+    for name in ('mpjpe', 'aligned_mpjpe'):
+        assert abs(got[name] - expected[name]) <= 0.1, name
+    for name in ('pck', 'auc', 'aligned_pck', 'aligned_auc'):
+        assert abs(got[name] - expected[name]) <= 1e-3, name
+    np.testing.assert_allclose(stats['mean_loss'], captured['stats']['mean_loss'], rtol=1e-4)
+    assert stats['batches'] == 2
+
+
+class _FakeLoader:
+    """Batches of variable n_real with a trailing short one."""
+
+    dataset = None
+
+    def __init__(self, batch_sizes, n_joints=17, seed=0):
+        rnd = np.random.RandomState(seed)
+        self.batches = [dict(
+            input=rnd.randn(n, 2, 2, 3).astype(np.float32),
+            target=rnd.uniform(-0.9, 0.9, (n, n_joints, 3)).astype(np.float32),
+            valid_depth=np.ones((n,), np.int32),
+            joint_mask=np.ones((n, n_joints), np.float32),
+            original_skel=[rnd.randn(n_joints, 4) for _ in range(n)],
+            camera_intrinsic=[None] * n,
+            transform_opts=[{'batch': i, 'row': j} for j in range(n)],
+        ) for i, n in enumerate(batch_sizes)]
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def _fake_forward(images, target, mask, valid_depth):
+    # a function of the inputs that tells padded rows apart; the loss is a
+    # masked mean, as the real one is
+    xyz = target + images.mean()
+    return xyz, (images.sum((1, 2, 3))[:, None] * mask).sum() / mask.sum()
+
+
+@pytest.fixture
+def _stub_geometry(monkeypatch):
+    def stub(original_skel, norm_pred, dataset, intrinsic, opts, known_depth=False):
+        return np.asarray(original_skel)[..., :3], np.asarray(norm_pred)[..., :3]
+
+    monkeypatch.setattr(eval_3d, 'prepare_for_3d_evaluation', stub)
+
+
+def _collect(loader, batch_size, drain_window):
+    return list(eval_3d.obtain_predictions(_fake_forward, loader, torch.device('cpu'),
+                                           batch_size=batch_size, drain_window=drain_window))
+
+
+@pytest.mark.parametrize('drain_window', [0, 1, 3, 16])
+def test_drain_window_is_invisible(_stub_geometry, drain_window):
+    ref = _collect(_FakeLoader([4, 4, 4, 2]), 4, drain_window=0)
+    got = _collect(_FakeLoader([4, 4, 4, 2]), 4, drain_window=drain_window)
+    assert len(ref) == len(got) == 14
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(r['actual'], g['actual'])
+        assert r['loss'] == g['loss'] and r['loss_n'] == g['loss_n']
+
+
+def test_padded_tail_yields_only_real_rows(_stub_geometry):
+    loader = _FakeLoader([4, 3])
+    preds = _collect(loader, 4, drain_window=2)
+    assert len(preds) == 7
+    assert [i for i, p in enumerate(preds) if p['loss'] is not None] == [0, 4]
+    assert [i for i, p in enumerate(preds) if p['inference_time'] is not None] == [0, 4]
+    assert preds[4]['loss_n'] == 3
+    # padding rows repeat the last example and are masked out of the loss
+    tail = loader.batches[1]['input']
+    assert preds[4]['loss'] == pytest.approx(float(tail.sum()) / 3, rel=1e-6)
+    for row in range(3):
+        expected = loader.batches[1]['target'][row] + np.concatenate(
+            [tail, tail[-1:]]).mean(dtype=np.float32)
+        np.testing.assert_allclose(preds[4 + row]['actual'], expected, rtol=1e-5, atol=1e-6)
