@@ -2,12 +2,13 @@
 
 The layout mirrors the JAX package so each module's counterpart is easy to
 find:
-  ops/       DSNT numerics and the hand-written CUDA DSNT+JSD kernel (csrc/)
+  ops/       DSNT numerics and the hand-written CUDA DSNT+JSD kernels, forward
+             and backward (csrc/)
   geometry/  camera model, skeleton math, normalisation, 2D transforms (numpy)
   models/    NCHW nn.Modules with the reference state_dict keys + registry
   data/      host datasets and the thread-pool loader (numpy)
-  train/     meters
-  bin/       CLI entry points (eval_3d)
+  train/     train/eval steps, schedules, train-state checkpoints, meters
+  bin/       CLI entry points (eval_3d, train_3d)
 
 The port imports nothing of ``margipose_tpu``; the numpy host code is a copy.
 Entry points run on ``cuda`` unless the caller asks for the CPU.

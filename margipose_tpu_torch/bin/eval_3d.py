@@ -81,7 +81,7 @@ def padded_batches(loader, batch_size):
         yield out
 
 
-class _Clock:
+class DeviceClock:
     """CUDA events on the card, the host clock on the CPU (where every op
     has finished when it returns)."""
 
@@ -103,7 +103,7 @@ class _Clock:
         return start.elapsed_time(end) / 1000.0 if self.cuda else end - start
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(arr)
     if device.type == 'cuda':
         return t.pin_memory().to(device, non_blocking=True)
@@ -124,7 +124,7 @@ def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
     ``forward(images NCHW, target, mask, valid_depth) -> (xyz, loss)``. Each
     batch's first prediction carries the batch's device time per real
     example and its loss (weighted by ``loss_n`` real examples)."""
-    clock = _Clock(device)
+    clock = DeviceClock(device)
     batches = padded_batches(loader, batch_size)
     if print_progress:
         try:
@@ -154,10 +154,10 @@ def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
 
     pending = []
     for batch in batches:
-        images = _to_device(batch['input'], device).permute(0, 3, 1, 2).contiguous()
-        target = _to_device(batch['target'], device)
-        mask = _to_device(batch['joint_mask'], device)
-        valid_depth = _to_device(batch['valid_depth'], device)
+        images = to_device(batch['input'], device).permute(0, 3, 1, 2).contiguous()
+        target = to_device(batch['target'], device)
+        mask = to_device(batch['joint_mask'], device)
+        valid_depth = to_device(batch['valid_depth'], device)
         start = clock.mark()
         xyz, loss = forward(images, target, mask, valid_depth)
         end = clock.mark()

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from margipose_tpu_torch.models.layers import BasicConv2d
+from margipose_tpu_torch.models.layers import BasicConv2d, BatchNorm2d
 
 
 class Mixed3a(nn.Module):
@@ -88,6 +88,6 @@ def inception_in_cnn() -> nn.Sequential:
         Mixed5a(),
         InceptionA(),
         nn.Conv2d(384, 128, 1),
-        nn.BatchNorm2d(128),
+        BatchNorm2d(128),
         nn.ReLU(inplace=True),
     )

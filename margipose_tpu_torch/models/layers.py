@@ -8,7 +8,37 @@ port's keys are the keys ``margipose_tpu.train.torch_import`` exports.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode ``running_var`` takes in the biased
+    batch variance, as the JAX package's BatchNorm (flax) does.
+
+    Both frameworks normalise with the biased batch variance; torch folds the
+    unbiased one into ``running_var``, a factor n/(n-1) with n = B*H*W per
+    channel. The fix-up needs no second pass over the activation: with f the
+    EMA factor, torch leaves ``new = (1-f) old + f var_u``, and
+    ``new - (new - (1-f) old) / n`` is ``(1-f) old + f var_u (n-1)/n``.
+    """
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        old = self.running_var.clone()
+        out = super().forward(x)  # updates the stats and num_batches_tracked
+        if self.momentum is None:  # cumulative average, as torch computes it
+            keep = 1.0 - 1.0 / self.num_batches_tracked.to(old.dtype)
+        else:
+            keep = 1.0 - self.momentum
+        n = x.numel() // x.shape[1]
+        # through .data: autograd saved running_var with the batch-norm node
+        # (its train-mode backward never reads it), and an in-place update of
+        # the tracked tensor would fail the saved-version check
+        var = self.running_var.data
+        var.sub_((var - keep * old) / n)
+        return out
 
 
 class BasicConv2d(nn.Module):
@@ -18,7 +48,7 @@ class BasicConv2d(nn.Module):
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-3)
+        self.bn = BatchNorm2d(out_ch, eps=1e-3)
 
     def forward(self, x):
         return self.bn(self.conv(x)).relu_()
@@ -46,11 +76,11 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_ch, out_ch, kind='regular'):
         super().__init__()
         self.module = nn.Sequential(
-            _conv_in(in_ch, out_ch, kind, 3), nn.BatchNorm2d(out_ch), nn.ReLU(inplace=True),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False), nn.BatchNorm2d(out_ch),
+            _conv_in(in_ch, out_ch, kind, 3), BatchNorm2d(out_ch), nn.ReLU(inplace=True),
+            nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False), BatchNorm2d(out_ch),
             nn.ReLU(inplace=True),
         )
-        self.shortcut = nn.Sequential(_conv_in(in_ch, out_ch, kind, 1), nn.BatchNorm2d(out_ch))
+        self.shortcut = nn.Sequential(_conv_in(in_ch, out_ch, kind, 1), BatchNorm2d(out_ch))
 
     def forward(self, x):
         return self.module(x) + self.shortcut(x)

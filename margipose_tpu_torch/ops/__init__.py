@@ -7,11 +7,18 @@ from margipose_tpu_torch.ops.dsnt import (
     make_gauss,
     normalized_linspace,
 )
-from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused, dsnt_jsd_plain
+from margipose_tpu_torch.ops.dsnt_jsd import (
+    dsnt_jsd_bwd,
+    dsnt_jsd_bwd_plain,
+    dsnt_jsd_fused,
+    dsnt_jsd_plain,
+)
 
 __all__ = [
     "average_loss",
     "dsnt",
+    "dsnt_jsd_bwd",
+    "dsnt_jsd_bwd_plain",
     "dsnt_jsd_fused",
     "dsnt_jsd_plain",
     "euclidean_losses",

@@ -123,6 +123,7 @@ def test_dsnt_known_gaussians():
     assert_allclose(xyz.numpy(), [[[-0.5, 0.5, 0.15]]], atol=1e-5)
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """Runs on the card only: the CUDA kernel against its plain version."""
     if not torch.cuda.is_available():

@@ -1,0 +1,136 @@
+"""The fused DSNT+JSD head's gradient against the JAX package's.
+
+``dsnt_jsd_bwd_plain`` (the plain version of the CUDA backward kernel) and
+CPU autograd through ``dsnt_jsd_fused`` are held to the VJP of
+``margipose_tpu.ops.pallas_dsnt.dsnt_jsd_fused``, whose Pallas backward runs
+in interpret mode on the CPU as in tests/test_pallas.py. Inputs are made
+with numpy from a seed. The CUDA kernel itself is compared with its plain
+version on the card (``test_cuda_backward_matches_plain`` and chip_smoke.py).
+Tolerance: atol 1e-4 on gradients, as tests/test_pallas.py holds the Pallas
+gradients to the jnp ones; both sides are float32.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from margipose_tpu.ops.pallas_dsnt import dsnt_jsd_fused as jax_dsnt_jsd_fused
+from margipose_tpu_torch.ops.dsnt_jsd import (
+    dsnt_jsd_bwd,
+    dsnt_jsd_bwd_plain,
+    dsnt_jsd_fused,
+    dsnt_jsd_plain,
+)
+
+jdsnt = importlib.import_module('margipose_tpu.ops.dsnt')
+tdsnt = importlib.import_module('margipose_tpu_torch.ops.dsnt')
+
+SHAPES = [
+    (2, 17, 32, 32, 1.0),  # flagship rows
+    (1, 13, 16, 24, 2.0),  # non-square, prime row count
+]
+
+
+def _inputs(b, j, h, w, seed):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(b, j, h, w) * 2).astype(np.float32)
+    p = np.array(jdsnt.flat_softmax(jnp.asarray(logits)))
+    mu = rng.uniform(-0.8, 0.8, (b, j, 2)).astype(np.float32)
+    grad = rng.randn(b * j, 4).astype(np.float32)
+    return logits, p, mu, grad
+
+
+def _jax_vjp(p, mu, grad, sigma):
+    b, j = p.shape[:2]
+    _, vjp = jax.vjp(lambda x: jax_dsnt_jsd_fused(x, jnp.asarray(mu), sigma), jnp.asarray(p))
+    (dp,) = vjp((jnp.asarray(grad[:, :2].reshape(b, j, 2)), jnp.asarray(grad[:, 2].reshape(b, j))))
+    return np.asarray(dp)
+
+
+@pytest.mark.parametrize('b,j,h,w,sigma', SHAPES)
+def test_plain_backward_matches_jax_vjp(b, j, h, w, sigma):
+    _, p, mu, grad = _inputs(b, j, h, w, seed=b * 100 + h)
+    expected = _jax_vjp(p, mu, grad, sigma)
+    got = dsnt_jsd_bwd_plain(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(grad),
+                             sigma)
+    assert got.shape == (b, j, h, w)
+    assert_allclose(got.numpy(), expected, atol=1e-4)
+    # the wrapper takes the plain version for a CPU tensor, and counts no launch
+    before = dsnt_jsd_bwd.launches
+    wrapped = dsnt_jsd_bwd(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(grad), sigma)
+    assert dsnt_jsd_bwd.launches == before
+    assert torch.equal(wrapped, got)
+
+
+def test_plain_backward_ignores_the_fourth_column():
+    _, p, mu, grad = _inputs(1, 3, 8, 8, seed=5)
+    other = grad.copy()
+    other[:, 3] = 1e3
+    a, c = (dsnt_jsd_bwd_plain(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(g))
+            for g in (grad, other))
+    assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize('b,j,h,w,sigma', SHAPES)
+def test_cpu_autograd_matches_jax_grad(b, j, h, w, sigma):
+    _, p, mu, grad = _inputs(b, j, h, w, seed=b * 10 + w)
+    weights = grad.reshape(b, j, 4)
+
+    def jax_loss(x):
+        coords, jsd = jax_dsnt_jsd_fused(x, jnp.asarray(mu), sigma)
+        return jnp.sum(coords * weights[..., :2]) + jnp.sum(jsd * weights[..., 2])
+
+    expected = np.asarray(jax.grad(jax_loss)(jnp.asarray(p)))
+    p_t = torch.from_numpy(p).requires_grad_()
+    coords, jsd = dsnt_jsd_fused(p_t, torch.from_numpy(mu), sigma)
+    w_t = torch.from_numpy(weights)
+    ((coords * w_t[..., :2]).sum() + (jsd * w_t[..., 2]).sum()).backward()
+    assert_allclose(p_t.grad.numpy(), expected, atol=1e-4)
+
+
+def test_gradient_through_softmax_matches_jax_and_mu_gets_none():
+    logits, _, mu, _ = _inputs(2, 17, 32, 32, seed=3)
+
+    def jax_loss(lg, m):
+        coords, jsd = jax_dsnt_jsd_fused(jdsnt.flat_softmax(lg), m)
+        return jnp.sum(coords ** 2) + jnp.sum(jsd)
+
+    g_logits, g_mu = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(logits), jnp.asarray(mu))
+    np.testing.assert_array_equal(np.asarray(g_mu), 0.0)  # no mu cotangent, by contract
+    lg = torch.from_numpy(logits).requires_grad_()
+    mu_t = torch.from_numpy(mu).requires_grad_()
+    coords, jsd = dsnt_jsd_fused(tdsnt.flat_softmax(lg), mu_t)
+    d_logits, d_mu = torch.autograd.grad((coords ** 2).sum() + jsd.sum(), (lg, mu_t),
+                                         allow_unused=True)
+    assert d_mu is None
+    assert_allclose(d_logits.numpy(), np.asarray(g_logits), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_matches_plain():
+    """On the card: the backward kernel against its plain version, and autograd
+    through the fused head against autograd through the plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    for b, j, h, w, sigma in SHAPES + [(32, 17, 32, 32, 1.0), (1, 5, 5, 7, 1.5)]:
+        logits, p, mu, grad = _inputs(b, j, h, w, seed=b + j)
+        p_c, mu_c, g_c = (torch.from_numpy(a).cuda() for a in (p, mu, grad))
+        before = dsnt_jsd_bwd.launches
+        dp = dsnt_jsd_bwd(p_c, mu_c, g_c, sigma)
+        torch.cuda.synchronize()
+        assert dsnt_jsd_bwd.launches == before + 1
+        assert_allclose(dp.cpu().numpy(), dsnt_jsd_bwd_plain(p_c, mu_c, g_c, sigma).cpu().numpy(),
+                        atol=1e-5)
+        grads = []
+        for head in (dsnt_jsd_fused, dsnt_jsd_plain):
+            lg = torch.from_numpy(logits).cuda().requires_grad_()
+            coords, jsd = head(tdsnt.flat_softmax(lg), mu_c, sigma)
+            grads.append(torch.autograd.grad((coords ** 2).sum() + jsd.sum(), lg)[0].cpu())
+        assert_allclose(grads[0].numpy(), grads[1].numpy(), atol=1e-5)
+    with pytest.raises(ValueError):
+        dsnt_jsd_bwd(p_c, mu_c, g_c[:, :3].contiguous(), sigma)
