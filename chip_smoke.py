@@ -7,15 +7,20 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device        the card's name and power limit (nvidia-smi);
   2. build         every kernel in margipose_tpu_torch/csrc/, one nvcc per
                    source;
-  3. kernels       each kernel against its plain PyTorch version on the card,
-                   at the shapes the main paths give it, with times and
-                   bounds; the head's autograd through the CUDA backward
-                   against autograd through the plain version;
+  3. kernels       the kernels' branch-free log against logf over every
+                   normal float; each grouped kernel against its plain
+                   PyTorch version on the card, at the shape the main paths
+                   give it (12 groups of 32x17x32x32), one group, and the
+                   generic layout (16x24, H*W % 4 != 0, unaligned pointers),
+                   with times and bounds; the head's autograd through the
+                   CUDA backward against autograd through the plain version;
+     sweep         both kernels at 13, 544 and 6,528 rows of 32x32: a
+                   launch's fixed cost against its cost per row;
   4. main          the flagship eval path through its entry point
                    (margipose_tpu_torch.bin.eval_3d.main): MargiPose v6.0.1,
                    InceptionV4, 4 stages, 256 px, 17 joints, seeded random
                    weights, synthetic-64 at batch 32, float32 with TF32 off;
-                   every kernel of the path must have launched;
+                   the forward kernel must have launched once a batch;
   5. trace         torch.profiler over one eval batch: device time by kernel
                    group;
   6. parity        the eval forward on the card against the CPU;
@@ -23,7 +28,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                    (margipose_tpu_torch.bin.train_3d.main): synthetic data at
                    batch 32, a few 1cycle steps and one validation batch, a
                    model-latest checkpoint, which bin.eval_3d then reads;
-                   both kernels must have launched 12 times a step;
+                   both kernels must have launched once a step (and the
+                   forward once a validation batch);
   8. train trace   torch.profiler over one train step at batch 32;
   9. train parity  one train step at batch 2 on the card against the CPU.
 Then one JSON line of per-kernel numbers, and last the result line
@@ -52,8 +58,15 @@ ATOL_KERNEL = 1e-5         # float32 sums in another order than torch's reductio
 # dp is O(1) (grid coordinates and log ratios); the kernel's logs and
 # contracted multiply-adds round apart from torch's by a few ulp
 ATOL_GRAD = 1e-5
-KERNEL_SHAPES = [(1, 17, 32, 32, 1.0), (32, 17, 32, 32, 1.0), (1, 13, 16, 24, 2.0)]
-MAIN_SHAPE = (32, 32, 32)  # the main paths' (B, H, W): batch 32, 17 joints
+KERNEL_SHAPES = [  # (G groups, B, J, H, W, sigma, pointer offset in floats)
+    (12, 32, 17, 32, 32, 1.0, 0),  # the main paths': 4 stages x 3 planes at batch 32
+    (1, 1, 17, 32, 32, 1.0, 0),    # one group (dsnt_jsd_fused), B = 1
+    (3, 1, 13, 16, 24, 2.0, 0),    # the generic layout: non-square, sigma 2
+    (2, 1, 13, 7, 9, 1.5, 0),      # the generic layout: H*W % 4 != 0
+    (2, 2, 17, 32, 32, 1.0, 1),    # the generic layout: 32x32 off 16-byte alignment
+]
+MAIN_SHAPE = (12, 32, 32, 32, 0)  # the main paths' (G, B, H, W, offset): 17 joints
+SWEEP_ROWS = [(1, 1, 13), (1, 32, 17), (12, 32, 17)]  # (G, B, J): 13, 544, 6528 rows
 PALLAS = 'margipose_tpu/ops/pallas_dsnt.py'
 TRAIN_STEPS = 4            # the train path's steps at batch 32
 
@@ -113,13 +126,21 @@ def build_phase():
     phase('build', f'{names} built in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}')
 
 
-def dsnt_jsd_inputs(b, j, h, w, seed):
+def dsnt_jsd_inputs(g, b, j, h, w, offset, seed):
+    """G heatmap groups on the card, each ``offset`` floats into its storage,
+    and their targets, repeating over three planes as the model's stages
+    share them."""
     from margipose_tpu_torch.ops.dsnt import flat_softmax
 
-    g = torch.Generator().manual_seed(seed)
-    p = flat_softmax(torch.randn(b, j, h, w, generator=g) * 2).cuda()
-    mu = (torch.rand(b, j, 2, generator=g) * 1.6 - 0.8).cuda()
-    return p, mu
+    gen = torch.Generator().manual_seed(seed)
+    hms = []
+    for _ in range(g):
+        p = flat_softmax(torch.randn(b, j, h, w, generator=gen) * 2)
+        flat = torch.zeros(p.numel() + offset, device='cuda')
+        flat[offset:] = p.reshape(-1).cuda()
+        hms.append(flat[offset:].view(b, j, h, w))
+    planes = [(torch.rand(b, j, 2, generator=gen) * 1.6 - 0.8).cuda() for _ in range(3)]
+    return hms, [planes[i % 3] for i in range(g)]
 
 
 def bound(bytes_moved, ops):
@@ -130,35 +151,68 @@ def bound(bytes_moved, ops):
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
 
 
-def kernel_phase():
-    """dsnt_jsd_fused against dsnt_jsd_plain at the flagship rows (B=1 and
-    the main path's B=32) and the non-square 16x24 case."""
-    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused, dsnt_jsd_plain
+def fwd_bound(g, rows, s):
+    # p, mu read; out written. Per element: grid, q, m, 2 logs, 4 FMAs
+    return bound(4 * g * (rows * s + rows * 2 + rows * 4), g * rows * s * 16)
 
+
+def bwd_bound(g, rows, s):
+    # p, mu, grad read; dp written. Per element: grid, q, m, 2 logs, 3 FMAs
+    return bound(4 * g * (2 * rows * s + rows * 2 + rows * 4), g * rows * s * 16)
+
+
+def shape_name(g, b, j, h, w, sigma, offset):
+    return (f'{g}x{b}x{j}x{h}x{w} sigma={sigma}'
+            + (f', pointers {4 * offset} B off 16-byte alignment' if offset else ''))
+
+
+def kernel_phase():
+    """The grouped forward kernel against its plain version at every shape
+    of KERNEL_SHAPES: the main paths' 12 groups, one group, the generic
+    layout, H*W % 4 != 0 and unaligned pointers. Eager time is through
+    dsnt_jsd_grouped (what the model calls: the autograd Function and the
+    views); the graph time is the kernel's wrapper alone."""
+    from margipose_tpu_torch.ops.dsnt_jsd import (
+        dsnt_jsd_fwd,
+        dsnt_jsd_fwd_plain,
+        dsnt_jsd_grouped,
+        log_normal_mismatches,
+    )
+
+    mismatches = log_normal_mismatches()
+    phase('kernels', f'log_normal against logf over every normal positive float: {mismatches} '
+                     f'values differ')
+    if mismatches:
+        raise AssertionError('the kernels\' log_normal is not logf on its domain')
     report = dict(name='dsnt_jsd_fwd', route='cuda', source='margipose_tpu_torch/csrc/dsnt_jsd.cu',
                   replaces=f'{PALLAS}:62', library_ms=None)
     worst = 0.0
-    for b, j, h, w, sigma in KERNEL_SHAPES:
-        p, mu = dsnt_jsd_inputs(b, j, h, w, seed=b * 1000 + h)
-        coords, jsd = dsnt_jsd_fused(p, mu, sigma)
-        exp_coords, exp_jsd = dsnt_jsd_plain(p, mu, sigma)
+    for g, b, j, h, w, sigma, offset in KERNEL_SHAPES:
+        hms, mus = dsnt_jsd_inputs(g, b, j, h, w, offset, seed=g * 1000 + b * 100 + h)
+        rows = dsnt_jsd_fwd(hms, mus, sigma)
+        expected = dsnt_jsd_fwd_plain(hms, mus, sigma)
+        heads = dsnt_jsd_grouped(hms, mus, sigma)
         torch.cuda.synchronize()
-        err = max((coords - exp_coords).abs().max().item(), (jsd - exp_jsd).abs().max().item())
+        err = (rows - expected).abs().max().item()
+        for (coords, jsd), row in zip(heads, rows):  # the views the model reads
+            if not (torch.equal(coords.reshape(-1, 2), row[:, :2])
+                    and torch.equal(jsd.reshape(-1), row[:, 2])):
+                raise AssertionError('dsnt_jsd_grouped views disagree with the kernel rows')
         if not err <= ATOL_KERNEL:
-            raise AssertionError(f'dsnt_jsd kernel disagrees with its plain version at '
-                                 f'{(b, j, h, w)}: max abs err {err} > {ATOL_KERNEL}')
+            raise AssertionError(f'dsnt_jsd_fwd disagrees with its plain version at '
+                                 f'{shape_name(g, b, j, h, w, sigma, offset)}: max abs err '
+                                 f'{err} > {ATOL_KERNEL}')
         worst = max(worst, err)
-        rows, s = b * j, h * w
-        # p, mu read; out written. Per element: grid, q, m, 3 logs, 4 FMAs
-        bound_ms, bound_by = bound(4 * (rows * s + rows * 2 + rows * 4), rows * s * 16)
-        ms = median_ms(lambda: dsnt_jsd_fused(p, mu, sigma))
-        dev_ms = graph_ms(lambda: dsnt_jsd_fused(p, mu, sigma))
-        plain_ms = median_ms(lambda: dsnt_jsd_plain(p, mu, sigma))
-        phase('kernels', f'dsnt_jsd_fwd {b}x{j}x{h}x{w} sigma={sigma}: max abs err {err:.3g} '
-                         f'(atol {ATOL_KERNEL}); kernel {ms * 1e3:.2f} us per call eager, '
-                         f'{dev_ms * 1e3:.2f} us in a CUDA graph; plain {plain_ms * 1e3:.2f} us; '
-                         f'bound {bound_ms * 1e3:.3f} us ({bound_by}); library n/a')
-        if (b, h, w) == MAIN_SHAPE:
+        bound_ms, bound_by = fwd_bound(g, b * j, h * w)
+        ms = median_ms(lambda: dsnt_jsd_grouped(hms, mus, sigma))
+        dev_ms = graph_ms(lambda: dsnt_jsd_fwd(hms, mus, sigma))
+        plain_ms = median_ms(lambda: dsnt_jsd_fwd_plain(hms, mus, sigma))
+        phase('kernels', f'dsnt_jsd_fwd {shape_name(g, b, j, h, w, sigma, offset)} ({g * b * j} '
+                         f'rows): max abs err {err:.3g} (atol {ATOL_KERNEL}); kernel '
+                         f'{ms * 1e3:.2f} us per call eager, {dev_ms * 1e3:.2f} us in a CUDA graph; '
+                         f'plain {plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us '
+                         f'({bound_by}); library n/a')
+        if (g, b, h, w, offset) == MAIN_SHAPE:
             report.update(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
     report['max_abs_err'] = worst
@@ -166,71 +220,95 @@ def kernel_phase():
 
 
 def backward_kernel_phase():
-    """dsnt_jsd_bwd against dsnt_jsd_bwd_plain at the forward's shapes, and
-    the gradient of flat_softmax -> dsnt_jsd_fused (whose backward is the
-    kernel) against that of flat_softmax -> dsnt_jsd_plain (torch autograd),
-    with no gradient reaching the targets."""
+    """The grouped backward kernel against its plain version at the
+    forward's shapes, and the gradient of flat_softmax -> dsnt_jsd_grouped
+    (one launch each way) against that of flat_softmax -> dsnt_jsd_plain per
+    group (torch autograd), with no gradient reaching the targets."""
     from margipose_tpu_torch.ops.dsnt import flat_softmax
     from margipose_tpu_torch.ops.dsnt_jsd import (
         dsnt_jsd_bwd,
         dsnt_jsd_bwd_plain,
-        dsnt_jsd_fused,
+        dsnt_jsd_grouped,
         dsnt_jsd_plain,
     )
+
+    def plain_grouped(hms, mus, sigma):
+        return [dsnt_jsd_plain(hm, mu, sigma) for hm, mu in zip(hms, mus)]
 
     report = dict(name='dsnt_jsd_bwd', route='cuda', source='margipose_tpu_torch/csrc/dsnt_jsd.cu',
                   replaces=f'{PALLAS}:79', library_ms=None)
     worst = 0.0
-    for b, j, h, w, sigma in KERNEL_SHAPES:
-        p, mu = dsnt_jsd_inputs(b, j, h, w, seed=b * 1000 + h + 1)
-        g = torch.Generator().manual_seed(b + h)
-        grad = torch.randn(b * j, 4, generator=g).cuda()
-        dp = dsnt_jsd_bwd(p, mu, grad, sigma)
-        expected = dsnt_jsd_bwd_plain(p, mu, grad, sigma)
+    for g, b, j, h, w, sigma, offset in KERNEL_SHAPES:
+        hms, mus = dsnt_jsd_inputs(g, b, j, h, w, offset, seed=g * 1000 + b * 100 + h + 1)
+        gen = torch.Generator().manual_seed(g + b + h)
+        grad = torch.randn(g, b * j, 4, generator=gen).cuda()
+        dp = dsnt_jsd_bwd(hms, mus, grad, sigma)
+        expected = dsnt_jsd_bwd_plain(hms, mus, grad, sigma)
         torch.cuda.synchronize()
         err = (dp - expected).abs().max().item()
 
-        logits = (torch.randn(b, j, h, w, generator=g) * 2).cuda()
-        weights = torch.randn(b, j, 3, generator=g).cuda()
+        logits = [(torch.randn(b, j, h, w, generator=gen) * 2).cuda() for _ in range(g)]
+        weights = [torch.randn(b, j, 3, generator=gen).cuda() for _ in range(g)]
         grads = []
-        for head in (dsnt_jsd_fused, dsnt_jsd_plain):
-            lg = logits.clone().requires_grad_()
-            target = mu.clone().requires_grad_()
-            coords, jsd = head(flat_softmax(lg), target, sigma)
-            loss = (coords * weights[..., :2]).sum() + (jsd * weights[..., 2]).sum()
-            grads.append(torch.autograd.grad(loss, (lg, target), allow_unused=True))
-        (d_logits, d_mu), (plain_logits, _) = grads
-        autograd_err = (d_logits - plain_logits).abs().max().item()
+        for head in (dsnt_jsd_grouped, plain_grouped):
+            lgs = [lg.clone().requires_grad_() for lg in logits]
+            targets = [mu.clone().requires_grad_() for mu in mus]
+            heads = head([flat_softmax(lg) for lg in lgs], targets, sigma)
+            loss = sum((c * wt[..., :2]).sum() + (d * wt[..., 2]).sum()
+                       for (c, d), wt in zip(heads, weights))
+            grads.append(torch.autograd.grad(loss, lgs + targets, allow_unused=True))
+        (kernel_grads, plain_grads) = grads
+        autograd_err = max((a - c).abs().max().item()
+                           for a, c in zip(kernel_grads[:g], plain_grads[:g]))
         if not (err <= ATOL_GRAD and autograd_err <= ATOL_GRAD):
             raise AssertionError(f'dsnt_jsd_bwd disagrees with its plain version at '
-                                 f'{(b, j, h, w)}: max abs err {err}, through the softmax '
-                                 f'{autograd_err} (atol {ATOL_GRAD})')
-        if not (d_mu is None or torch.count_nonzero(d_mu).item() == 0):
-            raise AssertionError('dsnt_jsd_fused passed a gradient to its targets')
+                                 f'{shape_name(g, b, j, h, w, sigma, offset)}: max abs err {err}, '
+                                 f'through the softmax {autograd_err} (atol {ATOL_GRAD})')
+        if any(d is not None and torch.count_nonzero(d).item() for d in kernel_grads[g:]):
+            raise AssertionError('dsnt_jsd_grouped passed a gradient to its targets')
+        no_target = 'none' if all(d is None for d in kernel_grads[g:]) else 'zero'
         worst = max(worst, err, autograd_err)
-        rows, s = b * j, h * w
-        # p, mu, grad read; dp written. Per element: grid, q, m, 2 logs, 3 FMAs
-        bound_ms, bound_by = bound(4 * (2 * rows * s + rows * 2 + rows * 4), rows * s * 16)
-        ms = median_ms(lambda: dsnt_jsd_bwd(p, mu, grad, sigma))
-        dev_ms = graph_ms(lambda: dsnt_jsd_bwd(p, mu, grad, sigma))
-        plain_ms = median_ms(lambda: dsnt_jsd_bwd_plain(p, mu, grad, sigma))
-        phase('kernels', f'dsnt_jsd_bwd {b}x{j}x{h}x{w} sigma={sigma}: max abs err {err:.3g}, '
-                         f'through the softmax {autograd_err:.3g} (atol {ATOL_GRAD}), target '
-                         f'gradient {"none" if d_mu is None else "zero"}; kernel '
-                         f'{ms * 1e3:.2f} us per call eager, {dev_ms * 1e3:.2f} us in a CUDA '
-                         f'graph; plain {plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us '
-                         f'({bound_by}); library n/a')
-        if (b, h, w) == MAIN_SHAPE:
+        bound_ms, bound_by = bwd_bound(g, b * j, h * w)
+        ms = median_ms(lambda: dsnt_jsd_bwd(hms, mus, grad, sigma))
+        dev_ms = graph_ms(lambda: dsnt_jsd_bwd(hms, mus, grad, sigma))
+        plain_ms = median_ms(lambda: dsnt_jsd_bwd_plain(hms, mus, grad, sigma))
+        phase('kernels', f'dsnt_jsd_bwd {shape_name(g, b, j, h, w, sigma, offset)}: max abs err '
+                         f'{err:.3g}, through the softmax {autograd_err:.3g} (atol {ATOL_GRAD}), '
+                         f'target gradient {no_target}; kernel {ms * 1e3:.2f} us per call eager, '
+                         f'{dev_ms * 1e3:.2f} us in a CUDA graph; plain {plain_ms * 1e3:.2f} us; '
+                         f'bound {bound_ms * 1e3:.3f} us ({bound_by}); library n/a')
+        if (g, b, h, w, offset) == MAIN_SHAPE:
             report.update(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
     report['max_abs_err'] = worst
     return report
 
 
-def launch_counters():
-    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fused
+def sweep_phase(reports):
+    """Both grouped kernels at 32x32 over SWEEP_ROWS rows, in a CUDA graph:
+    a launch's fixed cost against its cost per row."""
+    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
 
-    return {'dsnt_jsd_fwd': dsnt_jsd_fused, 'dsnt_jsd_bwd': dsnt_jsd_bwd}
+    fwd_us, bwd_us = {}, {}
+    for g, b, j in SWEEP_ROWS:
+        hms, mus = dsnt_jsd_inputs(g, b, j, 32, 32, 0, seed=g + b + j)
+        grad = torch.randn(g, b * j, 4, device='cuda')
+        rows = g * b * j
+        fwd_us[rows] = graph_ms(lambda: dsnt_jsd_fwd(hms, mus, 1.0)) * 1e3
+        bwd_us[rows] = graph_ms(lambda: dsnt_jsd_bwd(hms, mus, grad, 1.0)) * 1e3
+        phase('sweep', f'{rows} rows of 32x32 ({g}x{b}x{j}): dsnt_jsd_fwd {fwd_us[rows]:.3f} us '
+                       f'(bound {fwd_bound(g, b * j, 1024)[0] * 1e3:.3f}), dsnt_jsd_bwd '
+                       f'{bwd_us[rows]:.3f} us (bound {bwd_bound(g, b * j, 1024)[0] * 1e3:.3f}) '
+                       f'in a CUDA graph; {fwd_us[rows] / rows * 1e3:.3f} and '
+                       f'{bwd_us[rows] / rows * 1e3:.3f} ns a row')
+    for report, us in zip(reports, (fwd_us, bwd_us)):
+        report['sweep_graph_us'] = us
+
+
+def launch_counters():
+    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
+
+    return {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd}
 
 
 @torch.no_grad()
@@ -280,8 +358,8 @@ def main_path_phase(model):
     rows, stats = eval_3d.main(['--model', ckpt, '--dataset', 'synthetic-64',
                                 '--batch-size', '32', '--device', 'cuda'])
     launches = {name: fn.launches for name, fn in counters.items()}
-    expected = 12 * stats['batches']  # 3 planes x 4 stages per batch
-    phase('main', f"kernel launches {launches}, expected dsnt_jsd_fwd = 12 x "
+    expected = stats['batches']  # one grouped launch for 3 planes x 4 stages per batch
+    phase('main', f"kernel launches {launches}, expected dsnt_jsd_fwd = 1 x "
                   f"{stats['batches']} batches = {expected}")
     if launches != {'dsnt_jsd_fwd': expected, 'dsnt_jsd_bwd': 0} or expected == 0:
         raise AssertionError(f'eval path launched {launches}, expected dsnt_jsd_fwd {expected} '
@@ -425,9 +503,10 @@ def train_path_phase():
                             f'out_dir={out_dir}', 'experiment_id=flagship'])
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {'dsnt_jsd_fwd': 12 * (steps + val_batches), 'dsnt_jsd_bwd': 12 * steps}
-    phase('train', f'kernel launches {launches}, expected {expected} (12 a step: 3 planes x 4 '
-                   f'stages; {steps} train steps, {val_batches} validation batch)')
+    expected = {'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps}
+    phase('train', f'kernel launches {launches}, expected {expected} (one grouped launch each '
+                   f'way a step for 3 planes x 4 stages; {steps} train steps, {val_batches} '
+                   f'validation batch)')
     if launches != expected or result['step'] != steps:
         raise AssertionError(f'train path launched {launches} in {result["step"]} steps, '
                              f'expected {expected} in {steps}')
@@ -553,6 +632,7 @@ def main():
     kind, _ = device_phase()
     build_phase()
     kernels = [kernel_phase(), backward_kernel_phase()]
+    sweep_phase(kernels)
     torch.cuda.synchronize()
     from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
 

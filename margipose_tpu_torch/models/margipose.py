@@ -4,7 +4,7 @@ NCHW counterpart of ``margipose_tpu/models/margipose.py`` (reference:
 src/margipose/models/margipose_model.py:13-284). Each plane has its own
 column module, as in the reference, where the JAX package stacks the three
 with ``nn.vmap``; the state_dict keys are the reference's. The loss head goes
-through ``ops.dsnt_jsd.dsnt_jsd_fused``: each plane's heatmaps are already
+through ``ops.dsnt_jsd.dsnt_jsd_grouped``: each plane's heatmaps are already
 ``[B, J, H, W]``, the layout the kernel takes.
 """
 
@@ -18,7 +18,7 @@ from torch import nn
 from margipose_tpu_torch.models.inception import inception_in_cnn
 from margipose_tpu_torch.models.layers import ResidualBlock, init_parameters
 from margipose_tpu_torch.ops.dsnt import average_loss, dsnt, euclidean_losses, flat_softmax
-from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused
+from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_grouped
 
 Default_MargiPose_Desc = {
     'type': 'margipose',
@@ -162,18 +162,22 @@ class MargiPoseModel(nn.Module):
 def _stage_components(out: ModelOutput, target_xyz, pixelwise_loss, sigma=1.0):
     """Per-stage (px_xy, px_zy, px_xz, coords_xy, coords_xyz): the pixelwise
     losses and coordinates of each plane, computed once and shared by the 2D
-    and 3D losses. With the JSD loss each plane is one ``dsnt_jsd_fused``."""
-    x, y, z = target_xyz.unbind(-1)
-    targets = [torch.stack(pair, -1).contiguous() for pair in ((x, y), (z, y), (x, z))]
-    for stage in zip(out.xy_heatmaps, out.zy_heatmaps, out.xz_heatmaps):
+    and 3D losses. With the JSD loss every stage's three planes go through
+    one ``dsnt_jsd_grouped`` call: one kernel launch a batch on the card."""
+    stages = list(zip(out.xy_heatmaps, out.zy_heatmaps, out.xz_heatmaps))
+    if pixelwise_loss == 'jsd':
+        x, y, z = target_xyz.unbind(-1)
+        targets = [torch.stack(pair, -1).contiguous() for pair in ((x, y), (z, y), (x, z))]
+        heads = dsnt_jsd_grouped([hm for stage in stages for hm in stage],
+                                 targets * len(stages), sigma)
+    elif pixelwise_loss is not None:
+        raise ValueError(f'unrecognised pixelwise loss: {pixelwise_loss}')
+    for t, stage in enumerate(stages):
         if pixelwise_loss == 'jsd':
-            (cxy, pxy), (czy, pzy), (cxz, pxz) = (
-                dsnt_jsd_fused(hm, mu, sigma) for hm, mu in zip(stage, targets))
-        elif pixelwise_loss is None:
+            (cxy, pxy), (czy, pzy), (cxz, pxz) = heads[3 * t:3 * t + 3]
+        else:
             cxy, czy, cxz = (dsnt(hm) for hm in stage)
             pxy = pzy = pxz = 0.0
-        else:
-            raise ValueError(f'unrecognised pixelwise loss: {pixelwise_loss}')
         xyz = torch.cat([cxy, 0.5 * (czy[..., 0:1] + cxz[..., 1:2])], -1)
         yield pxy, pzy, pxz, cxy, xyz
 

@@ -11,6 +11,9 @@ from margipose_tpu_torch.ops.dsnt_jsd import (
     dsnt_jsd_bwd,
     dsnt_jsd_bwd_plain,
     dsnt_jsd_fused,
+    dsnt_jsd_fwd,
+    dsnt_jsd_fwd_plain,
+    dsnt_jsd_grouped,
     dsnt_jsd_plain,
 )
 
@@ -20,6 +23,9 @@ __all__ = [
     "dsnt_jsd_bwd",
     "dsnt_jsd_bwd_plain",
     "dsnt_jsd_fused",
+    "dsnt_jsd_fwd",
+    "dsnt_jsd_fwd_plain",
+    "dsnt_jsd_grouped",
     "dsnt_jsd_plain",
     "euclidean_losses",
     "flat_softmax",

@@ -2,9 +2,11 @@
 
 Inputs are made with numpy from a seed and given to both packages. The JAX
 fused head runs its Pallas kernel in interpret mode on the CPU, as
-tests/test_pallas.py runs it; the port's wrapper runs its plain version on a
-CPU tensor. The CUDA kernel itself is compared with the plain version on the
-card (``test_cuda_kernel_matches_plain`` here, and chip_smoke.py).
+tests/test_pallas.py runs it; the port's wrappers run their plain versions on
+CPU tensors. The grouped head (``dsnt_jsd_grouped``: G heatmap tensors in one
+launch) is held to the JAX head group by group. The CUDA kernel itself is
+compared with the plain version on the card (the ``cuda``-marked tests here,
+and chip_smoke.py).
 """
 
 import importlib
@@ -17,7 +19,15 @@ import torch
 from numpy.testing import assert_allclose
 
 from margipose_tpu.ops.pallas_dsnt import dsnt_jsd_fused as jax_dsnt_jsd_fused
-from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused, dsnt_jsd_plain
+from margipose_tpu_torch.ops.dsnt_jsd import (
+    MAX_GROUPS,
+    dsnt_jsd_fused,
+    dsnt_jsd_fwd,
+    dsnt_jsd_fwd_plain,
+    dsnt_jsd_grouped,
+    dsnt_jsd_plain,
+    log_normal_mismatches,
+)
 
 # the modules, not the functions the ops packages re-export under that name
 jdsnt = importlib.import_module('margipose_tpu.ops.dsnt')
@@ -32,6 +42,21 @@ def _heatmaps(b, j, h, w, seed):
     return logits, p, mu
 
 
+def _groups(g, b, j, h, w, seed, planes=2):
+    """G heatmap groups with targets repeating over ``planes`` tensors, as the
+    model's stages share each plane's targets."""
+    ps = [_heatmaps(b, j, h, w, seed + i)[1] for i in range(g)]
+    mus = [_heatmaps(b, j, h, w, seed + 100 + i)[2] for i in range(planes)]
+    return ps, [mus[i % planes] for i in range(g)]
+
+
+GROUPED_SHAPES = [
+    (2, 17, 32, 32, 1.0),  # flagship rows
+    (1, 3, 16, 24, 2.0),   # non-square
+    (1, 13, 8, 8, 1.0),    # prime row count
+]
+
+
 @pytest.mark.parametrize('b,j,h,w,sigma', [
     (4, 17, 32, 32, 1.0),  # flagship rows
     (1, 3, 16, 24, 2.0),   # non-square
@@ -44,6 +69,50 @@ def test_fused_matches_jax_pallas(b, j, h, w, sigma):
     assert coords.shape == (b, j, 2) and jsd.shape == (b, j)
     assert_allclose(coords.numpy(), np.asarray(exp_coords), atol=1e-5)
     assert_allclose(jsd.numpy(), np.asarray(exp_jsd), atol=1e-5)
+
+
+@pytest.mark.parametrize('b,j,h,w,sigma', GROUPED_SHAPES)
+def test_grouped_matches_jax_pallas(b, j, h, w, sigma):
+    """G = 6 groups over two planes' targets, each against JAX's head."""
+    ps, mus = _groups(6, b, j, h, w, seed=b * 10 + h)
+    heads = dsnt_jsd_grouped([torch.from_numpy(p) for p in ps],
+                             [torch.from_numpy(mu) for mu in mus], sigma)
+    assert len(heads) == 6
+    for i, ((coords, jsd), p, mu) in enumerate(zip(heads, ps, mus)):
+        exp_coords, exp_jsd = jax_dsnt_jsd_fused(jnp.asarray(p), jnp.asarray(mu), sigma)
+        assert coords.shape == (b, j, 2) and jsd.shape == (b, j)
+        assert_allclose(coords.numpy(), np.asarray(exp_coords), atol=1e-5, err_msg=f'group {i}')
+        assert_allclose(jsd.numpy(), np.asarray(exp_jsd), atol=1e-5, err_msg=f'group {i}')
+
+
+def test_forward_wrapper_takes_the_plain_rows_on_cpu():
+    ps, mus = _groups(3, 2, 5, 8, 12, seed=11)
+    hms, mus = [torch.from_numpy(p) for p in ps], [torch.from_numpy(m) for m in mus]
+    before = dsnt_jsd_fwd.launches
+    rows = dsnt_jsd_fwd(hms, mus, 1.5)
+    assert dsnt_jsd_fwd.launches == before  # no kernel on the CPU
+    assert rows.shape == (3, 10, 4) and torch.equal(rows, dsnt_jsd_fwd_plain(hms, mus, 1.5))
+    for row, hm, mu in zip(rows, hms, mus):
+        coords, jsd = dsnt_jsd_plain(hm, mu, 1.5)
+        assert torch.equal(row[:, :2], coords.reshape(-1, 2))
+        assert torch.equal(row[:, 2], jsd.reshape(-1))
+        assert torch.equal(row[:, 3], torch.zeros(10))
+
+
+def test_grouped_raises_on_groups_it_does_not_take():
+    ps, mus = _groups(2, 1, 3, 8, 8, seed=12)
+    hms, mus = [torch.from_numpy(p) for p in ps], [torch.from_numpy(m) for m in mus]
+    with pytest.raises(ValueError, match='groups differ'):
+        dsnt_jsd_grouped([hms[0], hms[1][:, :2]], [mus[0], mus[1][:, :2]])
+    with pytest.raises(ValueError, match='groups differ'):
+        dsnt_jsd_grouped(hms, [mus[0], mus[1][..., :1]])
+    with pytest.raises(ValueError, match='targets'):
+        dsnt_jsd_grouped(hms, mus[:1])
+    with pytest.raises(ValueError, match='groups'):
+        dsnt_jsd_grouped([], [])
+    with pytest.raises(ValueError, match='groups'):
+        dsnt_jsd_grouped(hms[:1] * (MAX_GROUPS + 1), mus[:1] * (MAX_GROUPS + 1))
+    assert len(dsnt_jsd_grouped(hms[:1] * MAX_GROUPS, mus[:1] * MAX_GROUPS)) == MAX_GROUPS
 
 
 def test_no_target_gradient_and_softmax_gradients_match_jax():
@@ -125,16 +194,17 @@ def test_dsnt_known_gaussians():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
-    """Runs on the card only: the CUDA kernel against its plain version."""
+    """Runs on the card only: the CUDA kernel, as one-group calls, against
+    its plain version, on the 32x32 layout and the generic one."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     for b, j, h, w, sigma in [(32, 17, 32, 32, 1.0), (1, 13, 16, 24, 2.0), (1, 5, 5, 7, 1.5)]:
         _, p, mu = _heatmaps(b, j, h, w, seed=b + j)
         p_c, mu_c = torch.from_numpy(p).cuda(), torch.from_numpy(mu).cuda()
-        before = dsnt_jsd_fused.launches
+        before = dsnt_jsd_fwd.launches
         coords, jsd = dsnt_jsd_fused(p_c, mu_c, sigma)
         torch.cuda.synchronize()
-        assert dsnt_jsd_fused.launches == before + 1
+        assert dsnt_jsd_fwd.launches == before + 1
         exp_coords, exp_jsd = dsnt_jsd_plain(p_c, mu_c, sigma)
         assert_allclose(coords.cpu().numpy(), exp_coords.cpu().numpy(), atol=1e-5)
         assert_allclose(jsd.cpu().numpy(), exp_jsd.cpu().numpy(), atol=1e-5)
@@ -142,3 +212,43 @@ def test_cuda_kernel_matches_plain():
         dsnt_jsd_fused(p_c.double(), mu_c)
     with pytest.raises(ValueError):
         dsnt_jsd_fused(p_c.transpose(2, 3), mu_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g,b,j,h,w,sigma,offset,spoil', [
+    (12, 32, 17, 32, 32, 1.0, 0, False),  # the flagship's batch: 4 stages x 3 planes
+    (3, 1, 13, 16, 24, 2.0, 0, False),    # generic layout
+    (2, 1, 13, 7, 9, 1.5, 0, False),      # H*W % 4 != 0
+    (2, 2, 17, 32, 32, 1.0, 1, False),    # 32x32 from pointers off 16-byte alignment
+    (2, 2, 17, 32, 32, 1.0, 0, True),     # 32x32 rows outside [0, 2): logf's own path
+])
+def test_cuda_grouped_kernel_matches_plain(g, b, j, h, w, sigma, offset, spoil):
+    """Runs on the card only: one grouped launch against the plain rows."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    ps, mus = _groups(g, b, j, h, w, seed=g + h, planes=3)
+    hms = []
+    for p in ps:  # each heatmap tensor `offset` floats into its storage
+        flat = torch.zeros(p.size + offset, device='cuda')
+        flat[offset:] = torch.from_numpy(p.ravel()).cuda()
+        hms.append(flat[offset:].view(p.shape))
+    if spoil:  # one row with a value of 2.5, one with a negative value (NaN logs)
+        hms[0][0, 1, 3, 5] = 2.5
+        hms[1][1, 2, 30, 0] = -0.25
+    mus = [torch.from_numpy(mu).cuda() for mu in mus]
+    before = dsnt_jsd_fwd.launches
+    rows = dsnt_jsd_fwd(hms, mus, sigma)
+    torch.cuda.synchronize()
+    assert dsnt_jsd_fwd.launches == before + 1
+    expected = dsnt_jsd_fwd_plain(hms, mus, sigma).cpu().numpy()
+    assert_allclose(rows.cpu().numpy(), expected, atol=1e-5)  # NaN where the plain has NaN
+    assert np.isnan(expected).any() == spoil
+
+
+@pytest.mark.cuda
+def test_cuda_log_normal_is_logf():
+    """Runs on the card only: the kernels' branch-free log gives logf's bits
+    for every normal positive float, the only arguments it is given."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    assert log_normal_mismatches() == 0

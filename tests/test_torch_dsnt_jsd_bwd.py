@@ -1,13 +1,15 @@
 """The fused DSNT+JSD head's gradient against the JAX package's.
 
-``dsnt_jsd_bwd_plain`` (the plain version of the CUDA backward kernel) and
-CPU autograd through ``dsnt_jsd_fused`` are held to the VJP of
-``margipose_tpu.ops.pallas_dsnt.dsnt_jsd_fused``, whose Pallas backward runs
-in interpret mode on the CPU as in tests/test_pallas.py. Inputs are made
-with numpy from a seed. The CUDA kernel itself is compared with its plain
-version on the card (``test_cuda_backward_matches_plain`` and chip_smoke.py).
+``dsnt_jsd_bwd_plain`` (the plain version of the grouped CUDA backward
+kernel) and CPU autograd through ``dsnt_jsd_fused`` and ``dsnt_jsd_grouped``
+are held to the VJP of ``margipose_tpu.ops.pallas_dsnt.dsnt_jsd_fused``,
+whose Pallas backward runs in interpret mode on the CPU as in
+tests/test_pallas.py, group by group. Inputs are made with numpy from a seed.
+The CUDA kernel itself is compared with its plain version on the card (the
+``cuda``-marked tests and chip_smoke.py).
 Tolerance: atol 1e-4 on gradients, as tests/test_pallas.py holds the Pallas
-gradients to the jnp ones; both sides are float32.
+gradients to the jnp ones; both sides are float32. The grouped cases hold
+atol 1e-5.
 """
 
 import importlib
@@ -24,6 +26,7 @@ from margipose_tpu_torch.ops.dsnt_jsd import (
     dsnt_jsd_bwd,
     dsnt_jsd_bwd_plain,
     dsnt_jsd_fused,
+    dsnt_jsd_grouped,
     dsnt_jsd_plain,
 )
 
@@ -56,22 +59,38 @@ def _jax_vjp(p, mu, grad, sigma):
 def test_plain_backward_matches_jax_vjp(b, j, h, w, sigma):
     _, p, mu, grad = _inputs(b, j, h, w, seed=b * 100 + h)
     expected = _jax_vjp(p, mu, grad, sigma)
-    got = dsnt_jsd_bwd_plain(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(grad),
-                             sigma)
-    assert got.shape == (b, j, h, w)
-    assert_allclose(got.numpy(), expected, atol=1e-4)
+    args = ([torch.from_numpy(p)], [torch.from_numpy(mu)], torch.from_numpy(grad)[None], sigma)
+    got = dsnt_jsd_bwd_plain(*args)
+    assert got.shape == (1, b, j, h, w)
+    assert_allclose(got[0].numpy(), expected, atol=1e-4)
     # the wrapper takes the plain version for a CPU tensor, and counts no launch
     before = dsnt_jsd_bwd.launches
-    wrapped = dsnt_jsd_bwd(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(grad), sigma)
+    wrapped = dsnt_jsd_bwd(*args)
     assert dsnt_jsd_bwd.launches == before
     assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize('b,j,h,w,sigma', SHAPES + [(1, 13, 8, 8, 1.0)])
+def test_grouped_plain_backward_matches_jax_vjp(b, j, h, w, sigma):
+    """G = 6 groups over two planes' targets, each against jax.vjp."""
+    groups = [_inputs(b, j, h, w, seed=b * 100 + h + i) for i in range(6)]
+    mus = [groups[i % 2][2] for i in range(6)]
+    ps = [g[1] for g in groups]
+    grad = np.stack([g[3] for g in groups])
+    got = dsnt_jsd_bwd_plain([torch.from_numpy(p) for p in ps],
+                             [torch.from_numpy(mu) for mu in mus], torch.from_numpy(grad), sigma)
+    assert got.shape == (6, b, j, h, w)
+    for i in range(6):
+        assert_allclose(got[i].numpy(), _jax_vjp(ps[i], mus[i], grad[i], sigma), atol=1e-5,
+                        err_msg=f'group {i}')
 
 
 def test_plain_backward_ignores_the_fourth_column():
     _, p, mu, grad = _inputs(1, 3, 8, 8, seed=5)
     other = grad.copy()
     other[:, 3] = 1e3
-    a, c = (dsnt_jsd_bwd_plain(torch.from_numpy(p), torch.from_numpy(mu), torch.from_numpy(g))
+    a, c = (dsnt_jsd_bwd_plain([torch.from_numpy(p)], [torch.from_numpy(mu)],
+                               torch.from_numpy(g)[None])
             for g in (grad, other))
     assert torch.equal(a, c)
 
@@ -91,6 +110,37 @@ def test_cpu_autograd_matches_jax_grad(b, j, h, w, sigma):
     w_t = torch.from_numpy(weights)
     ((coords * w_t[..., :2]).sum() + (jsd * w_t[..., 2]).sum()).backward()
     assert_allclose(p_t.grad.numpy(), expected, atol=1e-4)
+
+
+@pytest.mark.parametrize('b,j,h,w,sigma', SHAPES + [(1, 13, 8, 8, 1.0)])
+def test_grouped_gradient_through_softmax_matches_jax(b, j, h, w, sigma):
+    """flat_softmax -> dsnt_jsd_grouped over G = 6 groups (two planes'
+    targets) against jax.grad of the same loss through JAX's head; the
+    targets get no gradient."""
+    groups = [_inputs(b, j, h, w, seed=b * 10 + w + i) for i in range(6)]
+    logits = [g[0] for g in groups]
+    mus = [groups[i % 2][2] for i in range(6)]
+    weights = [g[3].reshape(b, j, 4) for g in groups]
+
+    def loss(heads, xp):
+        return sum(xp.sum(c * wt[..., :2]) + xp.sum(d * wt[..., 2])
+                   for (c, d), wt in zip(heads, weights))
+
+    def jax_loss(lgs):
+        return loss([jax_dsnt_jsd_fused(jdsnt.flat_softmax(lg), jnp.asarray(mu), sigma)
+                     for lg, mu in zip(lgs, mus)], jnp)
+
+    expected = jax.grad(jax_loss)([jnp.asarray(lg) for lg in logits])
+    lgs = [torch.from_numpy(lg).requires_grad_() for lg in logits]
+    mu_ts = [torch.from_numpy(mu).requires_grad_() for mu in mus[:2]]
+    heads = dsnt_jsd_grouped([tdsnt.flat_softmax(lg) for lg in lgs],
+                             [mu_ts[i % 2] for i in range(6)], sigma)
+    weights = [torch.from_numpy(wt) for wt in weights]
+    grads = torch.autograd.grad(loss(heads, torch), lgs + mu_ts, allow_unused=True)
+    assert grads[6:] == (None, None)
+    for i in range(6):
+        assert_allclose(grads[i].numpy(), np.asarray(expected[i]), atol=1e-5,
+                        err_msg=f'group {i}')
 
 
 def test_gradient_through_softmax_matches_jax_and_mu_gets_none():
@@ -113,19 +163,20 @@ def test_gradient_through_softmax_matches_jax_and_mu_gets_none():
 
 @pytest.mark.cuda
 def test_cuda_backward_matches_plain():
-    """On the card: the backward kernel against its plain version, and autograd
-    through the fused head against autograd through the plain one."""
+    """On the card: the backward kernel as one-group calls against its plain
+    version, and autograd through the fused head against autograd through
+    the plain one."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     for b, j, h, w, sigma in SHAPES + [(32, 17, 32, 32, 1.0), (1, 5, 5, 7, 1.5)]:
         logits, p, mu, grad = _inputs(b, j, h, w, seed=b + j)
         p_c, mu_c, g_c = (torch.from_numpy(a).cuda() for a in (p, mu, grad))
+        args = ([p_c], [mu_c], g_c[None], sigma)
         before = dsnt_jsd_bwd.launches
-        dp = dsnt_jsd_bwd(p_c, mu_c, g_c, sigma)
+        dp = dsnt_jsd_bwd(*args)
         torch.cuda.synchronize()
         assert dsnt_jsd_bwd.launches == before + 1
-        assert_allclose(dp.cpu().numpy(), dsnt_jsd_bwd_plain(p_c, mu_c, g_c, sigma).cpu().numpy(),
-                        atol=1e-5)
+        assert_allclose(dp.cpu().numpy(), dsnt_jsd_bwd_plain(*args).cpu().numpy(), atol=1e-5)
         grads = []
         for head in (dsnt_jsd_fused, dsnt_jsd_plain):
             lg = torch.from_numpy(logits).cuda().requires_grad_()
@@ -133,4 +184,45 @@ def test_cuda_backward_matches_plain():
             grads.append(torch.autograd.grad((coords ** 2).sum() + jsd.sum(), lg)[0].cpu())
         assert_allclose(grads[0].numpy(), grads[1].numpy(), atol=1e-5)
     with pytest.raises(ValueError):
-        dsnt_jsd_bwd(p_c, mu_c, g_c[:, :3].contiguous(), sigma)
+        dsnt_jsd_bwd([p_c], [mu_c], g_c[None, :, :3].contiguous(), sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('g,b,j,h,w,sigma,spoil', [
+    (12, 32, 17, 32, 32, 1.0, False),  # the flagship's batch: 4 stages x 3 planes
+    (3, 1, 13, 16, 24, 2.0, False),    # generic layout
+    (2, 1, 13, 7, 9, 1.5, False),      # H*W % 4 != 0
+    (2, 2, 17, 32, 32, 1.0, True),     # 32x32 rows outside [0, 2): logf's own path
+])
+def test_cuda_grouped_backward_matches_plain(g, b, j, h, w, sigma, spoil):
+    """On the card: one grouped backward launch against the plain version,
+    and autograd through flat_softmax -> dsnt_jsd_grouped (one launch each
+    way) against autograd through the plain head, with no target gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    groups = [_inputs(b, j, h, w, seed=g + h + i) for i in range(g)]
+    ps = [torch.from_numpy(x[1]).cuda() for x in groups]
+    mus = [torch.from_numpy(groups[i % 3][2]).cuda() for i in range(g)]
+    grad = torch.from_numpy(np.stack([x[3] for x in groups])).cuda()
+    if spoil:  # one row with a value of 2.5, one with a negative value (NaN logs)
+        ps[0][0, 1, 3, 5] = 2.5
+        ps[1][1, 2, 30, 0] = -0.25
+    before = dsnt_jsd_bwd.launches
+    dp = dsnt_jsd_bwd(ps, mus, grad, sigma)
+    torch.cuda.synchronize()
+    assert dsnt_jsd_bwd.launches == before + 1
+    expected = dsnt_jsd_bwd_plain(ps, mus, grad, sigma).cpu().numpy()
+    assert_allclose(dp.cpu().numpy(), expected, atol=1e-5)  # NaN where the plain has NaN
+    assert np.isnan(expected).any() == spoil
+    if spoil:
+        return
+    lgs = [torch.from_numpy(x[0]).cuda().requires_grad_() for x in groups]
+    mu_ts = [mu.clone().requires_grad_() for mu in mus]
+    results = []
+    for head in (dsnt_jsd_grouped, lambda hms, ms, s: [dsnt_jsd_plain(*a, s) for a in zip(hms, ms)]):
+        heads = head([tdsnt.flat_softmax(lg) for lg in lgs], mu_ts, sigma)
+        loss = sum((c ** 2).sum() + d.sum() for c, d in heads)
+        results.append(torch.autograd.grad(loss, lgs + mu_ts, allow_unused=True))
+    assert all(d is None for d in results[0][g:])
+    for got, want in zip(results[0][:g], results[1][:g]):
+        assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)

@@ -16,7 +16,12 @@ from numpy.testing import assert_allclose
 
 from margipose_tpu.models.margipose import margipose_masked_loss as jax_masked_loss
 from margipose_tpu_torch.models import create_model
-from margipose_tpu_torch.models.margipose import margipose_masked_loss, permute_axis
+from margipose_tpu_torch.models.margipose import (
+    _stage_components,
+    margipose_masked_loss,
+    permute_axis,
+)
+from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused
 from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_weights import jax_margipose, small_desc
 
@@ -71,6 +76,23 @@ def test_masked_loss_matches_both_jax_routes(small_pair):
                                  torch.from_numpy(mask), torch.from_numpy(valid_depth))
     assert_allclose(float(loss), float(stacked), rtol=1e-4)
     assert_allclose(float(loss), float(pallas), rtol=1e-4)
+
+
+def test_grouped_stage_components_equal_per_plane_calls(small_pair):
+    """The one grouped head call per batch gives, on the CPU, exactly what
+    the per-plane ``dsnt_jsd_fused`` calls it replaced gave (n_stages = 2)."""
+    out, target = small_pair['out'], torch.from_numpy(small_pair['target'])
+    x, y, z = target.unbind(-1)
+    targets = [torch.stack(pair, -1).contiguous() for pair in ((x, y), (z, y), (x, z))]
+    stages = list(zip(out.xy_heatmaps, out.zy_heatmaps, out.xz_heatmaps))
+    grouped = list(_stage_components(out, target, 'jsd'))
+    assert len(stages) == len(grouped) == 2
+    for stage, got in zip(stages, grouped):
+        (cxy, pxy), (czy, pzy), (cxz, pxz) = (dsnt_jsd_fused(hm, mu) for hm, mu in
+                                              zip(stage, targets))
+        xyz = torch.cat([cxy, 0.5 * (czy[..., 0:1] + cxz[..., 1:2])], -1)
+        for a, b in zip(got, (pxy, pzy, pxz, cxy, xyz)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('mode', ['xy', 'zy', 'xz'])
