@@ -31,22 +31,46 @@ Phases, each printing its own lines; any failure exits non-zero:
                    both kernels must have launched once a step (and the
                    forward once a validation batch);
   8. train trace   torch.profiler over one train step at batch 32;
-  9. train parity  one train step at batch 2 on the card against the CPU.
-Then one JSON line of per-kernel numbers, and last the result line
+  9. train parity  one train step at batch 2 on the card against the CPU;
+ 10. bf16 eval     bin.eval_3d at batch 32 with --precision bfloat16 --ship
+                   uint8 (the forward kernel once a batch), bf16 against
+                   float32 coordinates on one batch, and a profiled bf16
+                   batch by kernel group (are cuDNN's FFT convolutions gone?);
+ 11. multicrop     bin.eval_3d --multicrop: 10 crops an example, the forward
+                   kernel once an example;
+ 12. bf16 train    bin.train_3d with precision='bfloat16', ship='uint8':
+                   both kernels once a step, float32 weights, BN statistics
+                   and optimiser state; a profiled bf16 train step;
+ 13. infer         bin.infer_single.infer_image on resources/man_running.jpg,
+                   one crop and ten, card against CPU (float32);
+ 14. serve         bin.serve.create_server on the flagship at batch 8 in bf16:
+                   16 concurrent /predict requests, /healthz, /info,
+                   /metrics, then 4 requests one at a time; served
+                   coordinates against a direct runner call (timed); one
+                   float32 request against the CPU.
+The float32 phases (4-9) pass precision float32 and float32 input upload
+explicitly. Each path's kernel launches are counted from 0 around it. Then
+one JSON line of per-kernel numbers, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import io
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+
+import numpy as np
 
 import torch
 
@@ -60,6 +84,7 @@ ATOL_KERNEL = 1e-5         # float32 sums in another order than torch's reductio
 ATOL_GRAD = 1e-5
 KERNEL_SHAPES = [  # (G groups, B, J, H, W, sigma, pointer offset in floats)
     (12, 32, 17, 32, 32, 1.0, 0),  # the main paths': 4 stages x 3 planes at batch 32
+    (12, 10, 17, 32, 32, 1.0, 0),  # the multicrop eval's: one example's 10 crops
     (1, 1, 17, 32, 32, 1.0, 0),    # one group (dsnt_jsd_fused), B = 1
     (3, 1, 13, 16, 24, 2.0, 0),    # the generic layout: non-square, sigma 2
     (2, 1, 13, 7, 9, 1.5, 0),      # the generic layout: H*W % 4 != 0
@@ -69,6 +94,10 @@ MAIN_SHAPE = (12, 32, 32, 32, 0)  # the main paths' (G, B, H, W, offset): 17 joi
 SWEEP_ROWS = [(1, 1, 13), (1, 32, 17), (12, 32, 17)]  # (G, B, J): 13, 544, 6528 rows
 PALLAS = 'margipose_tpu/ops/pallas_dsnt.py'
 TRAIN_STEPS = 4            # the train path's steps at batch 32
+MULTICROP_EXAMPLES = 4     # the multicrop eval's examples, 10 crops each
+SERVE_REQUESTS = 16        # concurrent /predict requests to the bf16 server
+SERVE_ALONE = 4            # then requests one at a time
+IMAGE = os.path.join(ROOT, 'resources', 'man_running.jpg')
 
 
 def phase(name, msg):
@@ -168,8 +197,9 @@ def shape_name(g, b, j, h, w, sigma, offset):
 
 def kernel_phase():
     """The grouped forward kernel against its plain version at every shape
-    of KERNEL_SHAPES: the main paths' 12 groups, one group, the generic
-    layout, H*W % 4 != 0 and unaligned pointers. Eager time is through
+    of KERNEL_SHAPES: the main paths' 12 groups at batch 32 and at the
+    multicrop eval's 10 crops, one group, the generic layout, H*W % 4 != 0
+    and unaligned pointers. Eager time is through
     dsnt_jsd_grouped (what the model calls: the autograd Function and the
     views); the graph time is the kernel's wrapper alone."""
     from margipose_tpu_torch.ops.dsnt_jsd import (
@@ -184,6 +214,13 @@ def kernel_phase():
                      f'values differ')
     if mismatches:
         raise AssertionError('the kernels\' log_normal is not logf on its domain')
+    hms, mus = dsnt_jsd_inputs(1, 2, 17, 32, 32, 0, seed=9)
+    try:
+        dsnt_jsd_grouped([hms[0].bfloat16()], mus, 1.0)
+    except TypeError as exc:
+        phase('kernels', f'a bf16 heatmap reaching dsnt_jsd_grouped raises: {exc}')
+    else:
+        raise AssertionError('dsnt_jsd_grouped took a bf16 heatmap')
     report = dict(name='dsnt_jsd_fwd', route='cuda', source='margipose_tpu_torch/csrc/dsnt_jsd.cu',
                   replaces=f'{PALLAS}:62', library_ms=None)
     worst = 0.0
@@ -311,6 +348,18 @@ def launch_counters():
     return {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd}
 
 
+def reset_counts():
+    """Every kernel's launch count set to 0, just before a path runs."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
 @torch.no_grad()
 def randomize_batch_norm(model, images, generator):
     """BN running stats from one train-mode pass over ``images``, perturbed
@@ -352,12 +401,10 @@ def main_path_phase(model):
     os.makedirs(WORK, exist_ok=True)
     ckpt = os.path.join(WORK, 'margipose-flagship-random.pth')
     save_model(ckpt, model, Default_MargiPose_Desc)
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    rows, stats = eval_3d.main(['--model', ckpt, '--dataset', 'synthetic-64',
-                                '--batch-size', '32', '--device', 'cuda'])
-    launches = {name: fn.launches for name, fn in counters.items()}
+    counters = reset_counts()
+    rows, stats = eval_3d.main(['--model', ckpt, '--dataset', 'synthetic-64', '--batch-size', '32',
+                                '--precision', 'float32', '--ship', 'float32', '--device', 'cuda'])
+    launches = read_counts(counters)
     expected = stats['batches']  # one grouped launch for 3 planes x 4 stages per batch
     phase('main', f"kernel launches {launches}, expected dsnt_jsd_fwd = 1 x "
                   f"{stats['batches']} batches = {expected}")
@@ -372,7 +419,7 @@ def main_path_phase(model):
     if not (finite and math.isfinite(stats['mean_loss']) and len(rows['mpjpe']) == 64):
         raise AssertionError('main path gave non-finite metrics or loss, or lost examples')
     phase('main', f'loss and coordinates finite; overall {eval_3d.overall_metrics(rows)}')
-    return launches, ms
+    return launches, ckpt
 
 
 def profiled(fn):
@@ -408,7 +455,11 @@ def kernel_ms(events, words):
 
 # cuDNN's convolution kernels: implicit GEMM, FFT (r2c, pointwise complex
 # product, c2r), dgrad (also the transposed convolution's forward) and wgrad
-CONV_WORDS = ('conv', 'gemm', 'xmma', 'fft', 'complex', 'dgrad', 'wgrad')
+CONV_WORDS = ('conv', 'gemm', 'xmma', 'fft', 'complex', 'dgrad', 'wgrad', 'fprop')
+FFT_WORDS = ('fft', 'complex')
+EVAL_GROUPS = [('convolutions', CONV_WORDS), ('of which FFT', FFT_WORDS),
+               ('batch norm', ('batch_norm', 'bn_')), ('dsnt_jsd head', ('dsnt_jsd',)),
+               ('softmax', ('softmax',)), ('copies and casts', ('copy',))]
 
 
 def report_trace(name, what, events, busy_ms, window_ms, groups):
@@ -436,21 +487,21 @@ def flagship_batch(b, seed):
             'valid_depth': torch.tensor([1, 0] * (b // 2))}
 
 
-def trace_phase(model):
+def trace_phase(model, precision='float32', name='trace'):
     """Where one batch of 32 spends its device time: torch.profiler over one
-    forward + masked loss, kernels grouped by name."""
-    from margipose_tpu_torch.models.margipose import margipose_masked_loss
+    forward + masked loss (the eval bin's forward), kernels grouped by name."""
+    from margipose_tpu_torch.bin.eval_3d import make_forward
 
     batch = {k: v.cuda() for k, v in flagship_batch(32, seed=2).items()}
+    forward = make_forward(model, 'jsd', precision)
 
     def step():
-        with torch.inference_mode():
-            margipose_masked_loss(model(batch['input'])[1], batch['target'], batch['joint_mask'],
-                                  batch['valid_depth'])
+        forward(batch['input'], batch['target'], batch['joint_mask'], batch['valid_depth'])
 
-    report_trace('trace', 'one batch of 32, forward + loss', *profiled(step),
-                 [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
-                  ('dsnt_jsd head', ('dsnt_jsd',)), ('softmax', ('softmax',))])
+    events, busy, window = profiled(step)
+    report_trace(name, f'one batch of 32, forward + loss, {precision}', events, busy, window,
+                 EVAL_GROUPS)
+    return window, events
 
 
 def parity_phase(model):
@@ -493,15 +544,14 @@ def train_path_phase():
     out_dir = os.path.join(WORK, 'train')
     shutil.rmtree(out_dir, ignore_errors=True)
     steps, val_batches, seed = TRAIN_STEPS, 1, 7
-    counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counts()
     result = train_3d.main(['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
                             f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
                             'val_examples=32', 'metrics_every=1', f'seed={seed}',
+                            "precision='float32'", "ship='float32'",
                             f'out_dir={out_dir}', 'experiment_id=flagship'])
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps}
     phase('train', f'kernel launches {launches}, expected {expected} (one grouped launch each '
@@ -534,7 +584,7 @@ def train_path_phase():
                    f'a step; peak memory {peak_gib:.2f} GiB (max_memory_allocated)')
 
     rows, stats = eval_3d.main(['--model', ckpt_dir, '--dataset', 'synthetic-64',
-                                '--batch-size', '32', '--device', 'cuda'])
+                                '--batch-size', '32', '--precision', 'float32', '--device', 'cuda'])
     finite = all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m])
     if not (finite and math.isfinite(stats['mean_loss']) and len(rows['mpjpe']) == 64):
         raise AssertionError('eval of the trained checkpoint gave non-finite metrics or loss')
@@ -543,42 +593,44 @@ def train_path_phase():
     return launches
 
 
-def train_trace_phase(model):
+def train_trace_phase(model, precision='float32', name='train trace'):
     """Where one flagship train step at batch 32 spends its device time:
     torch.profiler over the port's train step, and over its forward + loss
     alone (train mode, no autograd graph: the same kernels), so that the
     backward's share is the difference."""
     from margipose_tpu_torch.models.margipose import margipose_masked_loss
+    from margipose_tpu_torch.parallel.precision import compute_dtype_scope
     from margipose_tpu_torch.train.schedules import make_optimiser
     from margipose_tpu_torch.train.steps import TrainState, make_train_step
 
     model = copy.deepcopy(model)
     state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0, max_iters=100))
-    step = make_train_step('jsd')
+    step = make_train_step('jsd', precision)
     batch = {k: v.cuda() for k, v in flagship_batch(32, seed=5).items()}
     step(state, batch)  # cuDNN's algorithm search for the train shapes
 
     def forward():
-        with torch.no_grad():
+        with torch.no_grad(), compute_dtype_scope(precision, 'cuda'):
             margipose_masked_loss(model.train()(batch['input'])[1], batch['target'],
                                   batch['joint_mask'], batch['valid_depth'])
 
     groups = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
               ('dsnt_jsd_fwd', ('dsnt_jsd_fwd',)), ('dsnt_jsd_bwd', ('dsnt_jsd_bwd',)),
-              ('softmax', ('softmax',)), ('optimiser', ('multi_tensor', 'foreach', 'sgd'))]
+              ('softmax', ('softmax',)), ('optimiser', ('multi_tensor', 'foreach', 'sgd')),
+              ('of which FFT', FFT_WORDS), ('copies and casts', ('copy',))]
     fwd_events, fwd_busy, fwd_window = profiled(forward)
     events, busy, window = profiled(lambda: step(state, batch))
-    report_trace('train trace', 'forward + loss alone, batch 32', fwd_events, fwd_busy,
-                 fwd_window, groups[:2])
-    report_trace('train trace', 'one train step of 32', events, busy, window, groups)
+    report_trace(name, f'forward + loss alone, batch 32, {precision}', fwd_events, fwd_busy,
+                 fwd_window, groups[:2] + groups[6:])
+    report_trace(name, f'one train step of 32, {precision}', events, busy, window, groups)
     if events and fwd_events:
         bwd_conv = kernel_ms(events, CONV_WORDS) - kernel_ms(fwd_events, CONV_WORDS)
         bwd_bn = kernel_ms(events, groups[1][1]) - kernel_ms(fwd_events, groups[1][1])
-        rest = busy - sum(kernel_ms(events, words) for _, words in groups)
-        phase('train trace', f'backward + optimiser {busy - fwd_busy:.3f} ms of kernels: '
-                             f'convolutions {bwd_conv:.3f} ms (dgrad, wgrad), batch norm '
-                             f'{bwd_bn:.3f} ms; kernels in no group above {rest:.3f} ms '
-                             f'(elementwise, ReLU, copies)')
+        rest = busy - sum(kernel_ms(events, words) for _, words in groups[:6])
+        phase(name, f'backward + optimiser {busy - fwd_busy:.3f} ms of kernels: '
+                    f'convolutions {bwd_conv:.3f} ms (dgrad, wgrad), batch norm '
+                    f'{bwd_bn:.3f} ms; kernels in no group above {rest:.3f} ms '
+                    f'(elementwise, ReLU, copies)')
 
 
 def train_parity_phase(model):
@@ -624,6 +676,252 @@ def train_parity_phase(model):
         raise AssertionError('a train step on the card disagrees with one on the CPU')
 
 
+def statistically_close(a, b):
+    """The bounds the JAX package holds its bf16 forward to against its f32
+    one (tests/test_precision.py): median < 0.02, mean < 0.05, no coordinate
+    further than 0.5 (a near-saturated softmax can move one by a heatmap
+    cell). Returns (ok, median, mean, max)."""
+    err = (a.double() - b.double()).abs()
+    med, mean, worst = err.median().item(), err.mean().item(), err.max().item()
+    return med < 0.02 and mean < 0.05 and worst <= 0.5, med, mean, worst
+
+
+def bf16_eval_phase(model, ckpt):
+    """The flagship eval path in bf16 with uint8 upload through bin.eval_3d,
+    bf16 against float32 coordinates on one batch of 32, and a profiled
+    bf16 batch."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    counters = reset_counts()
+    rows, stats = eval_3d.main(['--model', ckpt, '--dataset', 'synthetic-96', '--batch-size', '32',
+                                '--precision', 'bfloat16', '--ship', 'uint8', '--device', 'cuda'])
+    launches = read_counts(counters)
+    expected = {'dsnt_jsd_fwd': stats['batches'], 'dsnt_jsd_bwd': 0}
+    phase('bf16 eval', f'kernel launches {launches}, expected {expected}')
+    if launches != expected or not stats['batches']:
+        raise AssertionError(f'bf16 eval path launched {launches}, expected {expected}')
+    finite = all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m])
+    if not (finite and math.isfinite(stats['mean_loss']) and len(rows['mpjpe']) == 96):
+        raise AssertionError('bf16 eval gave non-finite metrics or loss, or lost examples')
+    ms = [s * 1e3 for s in stats['batch_seconds']]
+    phase('bf16 eval', f'device ms per batch of 32: {", ".join(f"{m:.3f}" for m in ms)}; '
+                       f'{32 * len(ms) / (sum(ms) / 1e3):.1f} images/s; mean loss '
+                       f'{stats["mean_loss"]}; overall {eval_3d.overall_metrics(rows)}')
+
+    batch = {k: v.cuda() for k, v in flagship_batch(32, seed=4).items()}
+    xyz = {p: eval_3d.make_forward(model, 'jsd', p)(batch['input'], batch['target'],
+                                                    batch['joint_mask'], batch['valid_depth'])[0]
+           for p in ('float32', 'bfloat16')}
+    ok, med, mean, worst = statistically_close(xyz['bfloat16'], xyz['float32'])
+    phase('bf16 eval', f'bf16 vs float32 coordinates on one batch of 32: median abs err {med:.4g} '
+                       f'(< 0.02), mean {mean:.4g} (< 0.05), max {worst:.4g} (<= 0.5)')
+    if not ok or xyz['bfloat16'].dtype != torch.float32:
+        raise AssertionError('bf16 coordinates outside the bounds of the float32 ones')
+    window, events = trace_phase(model, 'bfloat16', 'bf16 trace')
+    fft = kernel_ms(events, FFT_WORDS)
+    phase('bf16 trace', 'cuDNN FFT convolutions in bf16: ' + (
+        'not measured (no device events)' if not events else
+        'none' if not fft else f'{fft:.3f} ms'))
+    return launches
+
+
+def multicrop_phase(ckpt):
+    """bin.eval_3d --multicrop: each example's 10 crops in one forward."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    counters = reset_counts()
+    rows, stats = eval_3d.main(['--model', ckpt, '--dataset', f'synthetic-{MULTICROP_EXAMPLES}',
+                                '--multicrop', '--precision', 'float32', '--device', 'cuda'])
+    launches = read_counts(counters)
+    expected = {'dsnt_jsd_fwd': MULTICROP_EXAMPLES, 'dsnt_jsd_bwd': 0}
+    phase('multicrop', f'kernel launches {launches}, expected {expected} (one per example of '
+                       f'10 crops)')
+    if launches != expected or len(rows['mpjpe']) != MULTICROP_EXAMPLES:
+        raise AssertionError(f'multicrop eval launched {launches} for {len(rows["mpjpe"])} '
+                             f'examples, expected {expected}')
+    if not all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m]):
+        raise AssertionError('multicrop eval gave non-finite metrics')
+    ms = [s * 1e3 for s in stats['batch_seconds']]
+    phase('multicrop', f'device ms per example (10 crops): {", ".join(f"{m:.3f}" for m in ms)}; '
+                       f'overall {eval_3d.overall_metrics(rows)}')
+    return launches
+
+
+def bf16_train_phase():
+    """The flagship train path through bin.train_3d in bf16 with uint8
+    upload: both kernels once a step, and the saved weights, BN statistics
+    and optimiser state float32."""
+    from margipose_tpu_torch.bin import train_3d
+    from margipose_tpu_torch.train import checkpoint
+
+    out_dir = os.path.join(WORK, 'train_bf16')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, val_batches = TRAIN_STEPS, 1
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counts()
+    result = train_3d.main(['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
+                            f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
+                            'val_examples=32', 'metrics_every=1', 'seed=7',
+                            "precision='bfloat16'", "ship='uint8'",
+                            f'out_dir={out_dir}', 'experiment_id=flagship'])
+    launches = read_counts(counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps}
+    phase('bf16 train', f'kernel launches {launches}, expected {expected}')
+    if launches != expected or result['step'] != steps:
+        raise AssertionError(f'bf16 train path launched {launches} in {result["step"]} steps, '
+                             f'expected {expected} in {steps}')
+    payload = checkpoint.load_payload(os.path.join(out_dir, 'flagship', 'model-latest'))
+    dtypes = {v.dtype for k, v in payload['model'].items() if not k.endswith('num_batches_tracked')}
+    dtypes |= {buf.dtype for st in payload['optimiser']['optimiser']['state'].values()
+               for buf in st.values() if torch.is_tensor(buf)}
+    if dtypes != {torch.float32} or not math.isfinite(result['train_loss']):
+        raise AssertionError(f'bf16 train state holds {dtypes}, loss {result["train_loss"]}')
+    ms = [s * 1e3 for s in result['step_seconds']]
+    steady = ms[1:]
+    phase('bf16 train', f'train loss {result["train_loss"]:.6f}; weights, BN statistics and '
+                        f'optimiser state {sorted(str(d) for d in dtypes)}')
+    phase('bf16 train', f'device ms per step of 32: first {ms[0]:.3f} (cuDNN\'s algorithm '
+                        f'search), then {", ".join(f"{m:.3f}" for m in steady)}; '
+                        f'{32 * len(steady) / (sum(steady) / 1e3):.1f} images/s on the device '
+                        f'after the first step; data_load_time {result["data_load_time"]:.4f} s '
+                        f'a step; peak memory {peak_gib:.2f} GiB')
+    return launches
+
+
+def infer_phase(model):
+    """bin.infer_single.infer_image on resources/man_running.jpg, one crop
+    and ten, on the card against the CPU, float32 (TF32 off)."""
+    import PIL.Image
+
+    from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
+    from margipose_tpu_torch.bin.infer_single import infer_image
+    from margipose_tpu_torch.models import Default_MargiPose_Desc
+
+    set_float32_parity_mode()
+    cpu_model = copy.deepcopy(model).cpu()
+    image = PIL.Image.open(IMAGE)
+    counters = reset_counts()
+    for multicrop in (False, True):
+        t0 = time.perf_counter()
+        inp, coords = infer_image(model, image, Default_MargiPose_Desc, multicrop, 'cuda')
+        card_s = time.perf_counter() - t0
+        _, cpu_coords = infer_image(cpu_model, image, Default_MargiPose_Desc, multicrop, 'cpu')
+        err = float(np.abs(coords - cpu_coords).max())
+        phase('infer', f'{"10 crops" if multicrop else "one crop"}: input {inp.shape}, coords '
+                       f'{coords.shape}, card vs CPU max abs err {err:.3g} (atol 1e-4); '
+                       f'{card_s * 1e3:.1f} ms on the host clock, card')
+        if not (coords.shape == (17, 3) and np.isfinite(coords).all() and err <= 1e-4):
+            raise AssertionError('infer on the card disagrees with the CPU')
+    launches = read_counts(counters)
+    phase('infer', f'kernel launches {launches} (the JAX infer has no Pallas either: DSNT in '
+                   f'plain ops, no loss)')
+    return launches
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=body, method='POST')
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _serve(server):
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    return thread, f'http://{host}:{port}'
+
+
+def _stop(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+
+
+def serve_phase(ckpt):
+    """bin.serve at batch 8 in bf16 on the flagship: SERVE_REQUESTS
+    concurrent /predict requests, the other endpoints, the served
+    coordinates against a direct runner call on the same letterboxed
+    pixels; then one float32 request against the CPU's runner."""
+    import PIL.Image
+
+    from margipose_tpu_torch.bin import serve
+
+    rng = np.random.RandomState(11)
+    with open(IMAGE, 'rb') as f:
+        bodies = [f.read()]
+    photo = PIL.Image.open(IMAGE).convert('RGB')
+    for _ in range(SERVE_REQUESTS - 1):  # crops of the photo at other sizes, as PNG
+        w, h = rng.randint(160, 640), rng.randint(160, 640)
+        x, y = rng.randint(0, photo.width - w // 2), rng.randint(0, photo.height - h // 2)
+        buf = io.BytesIO()
+        photo.crop((x, y, x + w, y + h)).save(buf, format='PNG')
+        bodies.append(buf.getvalue())
+
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    server = serve.create_server(ckpt, port=0, batch_size=8, max_wait_ms=5.0,
+                                 precision='bfloat16', device='cuda')
+    phase('serve', f'bf16 server up at batch 8 (load + warmup {time.perf_counter() - t0:.2f} s)')
+    thread, url = _serve(server)
+    try:
+        health, info = _get(url + '/healthz'), _get(url + '/info')
+        with concurrent.futures.ThreadPoolExecutor(SERVE_REQUESTS) as pool:
+            replies = list(pool.map(lambda b: _post(url + '/predict', b), bodies))
+        metrics = _get(url + '/metrics')
+        alone = [_post(url + '/predict', b)['latency_ms'] for b in bodies[:SERVE_ALONE]]
+    finally:
+        _stop(server, thread)
+    launches = read_counts(counters)
+    if health != {'status': 'ok'} or info['batch_size'] != 8 or info['precision'] != 'bfloat16':
+        raise AssertionError(f'serve: /healthz {health}, /info {info}')
+    coords = [np.array(list(r['joints'].values())) for r in replies]
+    runner, specs, _ = serve.make_runner(ckpt, 'bfloat16', 'cuda')
+    w, h = specs.input_specs.width, specs.input_specs.height
+    worst, runner_ms = 0.0, []
+    for body, got in zip(bodies, coords):
+        pixels = serve.letterbox_uint8(PIL.Image.open(io.BytesIO(body)), w, h)
+        t0 = time.perf_counter()
+        direct = runner(np.stack([pixels] * 8))[0]
+        runner_ms.append((time.perf_counter() - t0) * 1e3)
+        worst = max(worst, float(np.abs(got - direct).max()))
+    lat = metrics.get('latency_ms', {})
+    phase('serve', f'{len(replies)} concurrent /predict: {metrics["ok_total"]} ok in '
+                   f'{metrics["batches_total"]} batches, mean batch occupancy '
+                   f'{metrics.get("batch_occupancy_mean")} of 8; latency p50 {lat.get("p50")} ms, '
+                   f'p95 {lat.get("p95")} ms, max {lat.get("max")} ms (host clock, /metrics)')
+    phase('serve', f'then {SERVE_ALONE} requests one at a time: latency '
+                   f'{", ".join(f"{ms:.3f}" for ms in alone)} ms')
+    phase('serve', f'served vs a direct runner call on the same pixels: max abs diff {worst:.3g} '
+                   f'(atol 1e-5); kernel launches {launches}; a direct runner call at batch 8 '
+                   f'(upload, forward, read-back) {runner_ms[0]:.3f} ms the first on this thread, '
+                   f'then median {float(np.median(runner_ms[1:])):.3f} ms')
+    if not (metrics['ok_total'] == SERVE_REQUESTS and metrics['errors_total'] == 0
+            and all(c.shape == (17, 3) and np.isfinite(c).all() for c in coords)
+            and worst <= 1e-5):
+        raise AssertionError(f'serve: metrics {metrics}, served vs direct {worst}')
+
+    server = serve.create_server(ckpt, port=0, batch_size=1, precision='float32', device='cuda')
+    thread, url = _serve(server)
+    try:
+        got = np.array(list(_post(url + '/predict', bodies[0])['joints'].values()))
+    finally:
+        _stop(server, thread)
+    cpu_runner, _, _ = serve.make_runner(ckpt, 'float32', 'cpu')
+    pixels = serve.letterbox_uint8(PIL.Image.open(io.BytesIO(bodies[0])), w, h)
+    err = float(np.abs(got - cpu_runner(pixels[None])[0]).max())
+    phase('serve', f'one float32 request on the card vs the CPU runner: max abs err {err:.3g} '
+                   f'(atol 1e-4)')
+    if not err <= 1e-4:
+        raise AssertionError('a float32 request served on the card disagrees with the CPU')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card',
@@ -638,17 +936,23 @@ def main():
 
     set_float32_parity_mode()
     model = flagship('cuda')
-    eval_launches, _ = main_path_phase(model)
+    by_path = {}
+    by_path['eval'], ckpt = main_path_phase(model)
     trace_phase(model)
     parity_phase(model)
-    train_launches = train_path_phase()
+    by_path['eval_bf16'] = bf16_eval_phase(model, ckpt)
+    by_path['multicrop'] = multicrop_phase(ckpt)
+    by_path['train'] = train_path_phase()
     train_trace_phase(model)
     train_parity_phase(model)
+    by_path['train_bf16'] = bf16_train_phase()
+    train_trace_phase(model, 'bfloat16', 'bf16 train trace')
+    by_path['infer'] = infer_phase(model)
+    by_path['serve'] = serve_phase(ckpt)
     for k in kernels:
-        # launches: the train path's, which runs both kernels
-        k['launches'] = train_launches[k['name']]
-        k['launches_by_path'] = {'eval': eval_launches[k['name']],
-                                 'train': train_launches[k['name']]}
+        # launches: the float32 train path's, which runs both kernels
+        k['launches'] = by_path['train'][k['name']]
+        k['launches_by_path'] = {path: counts[k['name']] for path, counts in by_path.items()}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}), flush=True)

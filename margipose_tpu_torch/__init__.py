@@ -2,13 +2,14 @@
 
 The layout mirrors the JAX package so each module's counterpart is easy to
 find:
-  ops/       DSNT numerics and the hand-written CUDA DSNT+JSD kernels, forward
-             and backward (csrc/)
+  ops/       DSNT numerics, the hand-written CUDA DSNT+JSD kernels, forward
+             and backward (csrc/), and batched image ops (image.py)
   geometry/  camera model, skeleton math, normalisation, 2D transforms (numpy)
   models/    NCHW nn.Modules with the reference state_dict keys + registry
-  data/      host datasets and the thread-pool loader (numpy)
+  data/      host datasets, the thread-pool loader (numpy), uint8 upload
+  parallel/  the bf16 autocast policy (precision.py)
   train/     train/eval steps, schedules, train-state checkpoints, meters
-  bin/       CLI entry points (eval_3d, train_3d)
+  bin/       CLI entry points (eval_3d, train_3d, infer_single, serve)
 
 The port imports nothing of ``margipose_tpu``; the numpy host code is a copy.
 Entry points run on ``cuda`` unless the caller asks for the CPU.

@@ -5,10 +5,15 @@ Counterpart of ``margipose_tpu/bin/eval_3d.py`` (reference:
 src/margipose/bin/eval_3d.py)::
 
     python -m margipose_tpu_torch.bin.eval_3d --model FILE.pth \\
-        --dataset synthetic-64 --batch-size 32 [--device cpu]
+        --dataset synthetic-64 --batch-size 32 [--precision bfloat16] \\
+        [--ship auto|uint8|float32] [--multicrop] [--device cpu]
 
 Each batch is padded to ``--batch-size``, uploaded, and run through the
-forward pass and the masked loss under ``torch.inference_mode()``. Results
+forward pass and the masked loss under ``torch.inference_mode()``. With
+``--multicrop`` each item is one example's 10 crops, unpadded, and yields one
+crop-averaged prediction. ``--precision bfloat16`` runs the convolutions
+under autocast (``parallel/precision.py``); ``--ship uint8`` uploads the
+input as its exact source pixels and renormalises it on the device. Results
 come back to the host in a window of in-flight batches: batch k is read only
 after batches k+1..k+W have been enqueued, so the host-side geometry overlaps
 the device instead of syncing every batch. Device time per batch comes from
@@ -28,12 +33,14 @@ import torch
 from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.checkpoint import load_model
 from margipose_tpu_torch.data.get_dataset import get_dataset
-from margipose_tpu_torch.data.loader import make_dataloader
+from margipose_tpu_torch.data.loader import make_dataloader, make_unbatched_dataloader
+from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.eval import gather_3d_metrics, prepare_for_3d_evaluation
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc, VNect_Common_Skeleton
 from margipose_tpu_torch.models import data_specs_for_desc
 from margipose_tpu_torch.models.margipose import margipose_masked_loss
+from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
 
 METRICS = ('aligned_auc', 'aligned_mpjpe', 'aligned_pck', 'auc', 'mpjpe', 'pck')
@@ -47,10 +54,21 @@ def parse_args(argv):
                         help='path to a reference-format .pth model file')
     parser.add_argument('--dataset', type=str, metavar='DS', default='synthetic-64',
                         help='dataset to evaluate on')
+    parser.add_argument('--multicrop', action='store_true',
+                        help='average each example\'s prediction over its 10 crops')
     parser.add_argument('--batch-size', type=int, metavar='N', default=1,
-                        help='examples per forward pass; the tail batch is padded')
-    parser.add_argument('--precision', type=str, default='float32', choices=['float32'],
-                        help='compute dtype; float32 (TF32 off) is the checkpoint-parity mode')
+                        help='examples per forward pass (ignored with --multicrop); the tail '
+                             'batch is padded')
+    parser.add_argument('--precision', type=str, default='float32',
+                        choices=['float32', 'bfloat16'],
+                        help='compute dtype: float32 (TF32 off) is the checkpoint-parity mode; '
+                             'bfloat16 runs the convolutions under autocast')
+    parser.add_argument('--ship', type=str, default='auto', choices=['auto', 'uint8', 'float32'],
+                        help='input upload encoding: uint8 re-quantises the input to its exact '
+                             'source pixels (4x fewer bytes) and renormalises on the device, '
+                             'which differs from the host normalisation at the last ulp; '
+                             'float32 uploads the host-normalised input. auto: uint8 under '
+                             'bfloat16, float32 under float32')
     parser.add_argument('--num-workers', type=int, metavar='N', default=0,
                         help='loader threads preparing upcoming batches')
     parser.add_argument('--device', type=str, default='cuda',
@@ -58,12 +76,13 @@ def parse_args(argv):
     return parser.parse_args(argv)
 
 
-def padded_batches(loader, batch_size):
+def padded_batches(loader, batch_size, multicrop=False):
     """Host batches with the tail padded to ``batch_size`` by repeating its
-    last example; padding rows are masked out of the loss."""
+    last example; padding rows are masked out of the loss. A multicrop item
+    (one example's crops) is not padded."""
     for batch in loader:
         n_real = int(np.asarray(batch['valid_depth']).shape[0])
-        pad = max(batch_size - n_real, 0)
+        pad = 0 if multicrop else max(batch_size - n_real, 0)
 
         def _pad(arr, dtype):
             arr = np.asarray(arr, dtype)
@@ -103,13 +122,6 @@ class DeviceClock:
         return start.elapsed_time(end) / 1000.0 if self.cuda else end - start
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(arr)
-    if device.type == 'cuda':
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     if t.device.type == 'cuda':
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -118,14 +130,17 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
-                       drain_window=4, print_progress=False):
+                       drain_window=4, print_progress=False, multicrop=False, ship_specs=None):
     """One prediction per real example (reference: src/margipose/bin/eval_3d.py:48-94).
 
     ``forward(images NCHW, target, mask, valid_depth) -> (xyz, loss)``. Each
     batch's first prediction carries the batch's device time per real
-    example and its loss (weighted by ``loss_n`` real examples)."""
+    example and its loss (weighted by ``loss_n`` real examples). With
+    ``multicrop`` each loader item is one example's crops and yields one
+    prediction, the mean over the crops of the untransformed skeletons, with
+    the item's device time and loss."""
     clock = DeviceClock(device)
-    batches = padded_batches(loader, batch_size)
+    batches = padded_batches(loader, batch_size, multicrop)
     if print_progress:
         try:
             from tqdm import tqdm
@@ -140,21 +155,30 @@ def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
         loss = float(entry['loss'])
         n_real = entry['n_real']
         seconds = clock.seconds(entry['start'], entry['end'])
-        for i, norm_pred in enumerate(ensure_homogeneous(xyz[:n_real], d=3)):
-            expected, actual = prepare_for_3d_evaluation(
-                entry['original_skel'][i], norm_pred, loader.dataset,
-                entry['camera_intrinsic'][i], entry['transform_opts'][i],
-                known_depth=known_depth)
-            fr = entry['frame_ref']
-            yield dict(expected=expected, actual=actual,
-                       frame_ref=None if fr is None else (
-                           fr[i] if isinstance(fr, list) else {k: np.asarray(v)[i] for k, v in fr.items()}),
+        fr = entry['frame_ref']
+
+        def frame_ref(i):
+            if fr is None:
+                return None
+            return fr[i] if isinstance(fr, list) else {k: np.asarray(v)[i] for k, v in fr.items()}
+
+        evaluated = [prepare_for_3d_evaluation(
+            entry['original_skel'][i], norm_pred, loader.dataset,
+            entry['camera_intrinsic'][i], entry['transform_opts'][i], known_depth=known_depth)
+            for i, norm_pred in enumerate(ensure_homogeneous(xyz[:n_real], d=3))]
+        if multicrop:  # one example's crops: average their predictions
+            actual = np.stack([a for _, a in evaluated]).mean(0)
+            yield dict(expected=evaluated[-1][0], actual=actual, frame_ref=frame_ref(0),
+                       inference_time=seconds, loss=loss, loss_n=1)
+            return
+        for i, (expected, actual) in enumerate(evaluated):
+            yield dict(expected=expected, actual=actual, frame_ref=frame_ref(i),
                        inference_time=seconds / n_real if i == 0 else None,
                        loss=loss if i == 0 else None, loss_n=n_real)
 
     pending = []
     for batch in batches:
-        images = to_device(batch['input'], device).permute(0, 3, 1, 2).contiguous()
+        images = device_input(batch['input'], device, ship_specs)
         target = to_device(batch['target'], device)
         mask = to_device(batch['joint_mask'], device)
         valid_depth = to_device(batch['valid_depth'], device)
@@ -174,7 +198,7 @@ def obtain_predictions(forward, loader, device, known_depth=False, batch_size=1,
 
 
 def run_evaluation_3d(forward, loader, included_joints, device, known_depth=False,
-                      batch_size=1, print_progress=False):
+                      batch_size=1, print_progress=False, multicrop=False, ship_specs=None):
     """(reference: src/margipose/bin/eval_3d.py:97-118)
 
     Returns (rows, stats): ``rows`` maps seq_id, activity_id and each metric
@@ -183,7 +207,8 @@ def run_evaluation_3d(forward, loader, included_joints, device, known_depth=Fals
     rows = {k: [] for k in ('seq_id', 'activity_id') + METRICS}
     loss_meter, time_meter, batch_seconds = MeanValueMeter(), MedianValueMeter(), []
     for pred in obtain_predictions(forward, loader, device, known_depth, batch_size,
-                                   print_progress=print_progress):
+                                   print_progress=print_progress, multicrop=multicrop,
+                                   ship_specs=ship_specs):
         if pred['inference_time'] is not None:
             time_meter.add(pred['inference_time'])
             batch_seconds.append(pred['inference_time'] * pred['loss_n'])
@@ -230,10 +255,14 @@ def overall_metrics(rows) -> dict:
     return {m: float(np.mean(rows[m])) for m in METRICS}
 
 
-def make_forward(model, pixelwise_loss):
+def make_forward(model, pixelwise_loss, compute_dtype=None):
+    """``forward(images, target, mask, valid_depth) -> (xyz, loss)``, both
+    float32: the model runs under ``compute_dtype_scope``, the loss outside
+    it (its heatmaps are float32 either way)."""
     def forward(images, target, mask, valid_depth):
         with torch.inference_mode():
-            xyz, out = model(images)
+            with compute_dtype_scope(compute_dtype, images.device):
+                xyz, out = model(images)
             loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss)
         return xyz.float(), loss
     return forward
@@ -250,12 +279,29 @@ def main(argv=None):
     random.seed(12345)
     np.random.seed(12345)
     device = resolve_device(args.device)
-    set_float32_parity_mode()
-    print('Precision: float32, TF32 off for convolutions and matmuls (checkpoint parity)')
+    compute_dtype = resolve_dtype(args.precision)
+    if compute_dtype == torch.float32:
+        set_float32_parity_mode()
+        print('Precision: float32, TF32 off for convolutions and matmuls (checkpoint parity)')
+    else:
+        print('Precision: bfloat16 autocast for the convolutions; float32 weights, BN '
+              'statistics and loss head')
+    # uint8's device renormalisation differs from the host's at the last ulp,
+    # so auto keeps the float32 parity mode's input bit-identical
+    ship = args.ship
+    if ship == 'auto':
+        ship = 'uint8' if args.precision == 'bfloat16' else 'float32'
+    print(f'Input upload: {ship}')
 
     model, model_desc = load_model(args.model, device)
     dataset = get_dataset(args.dataset, data_specs_for_desc(model_desc), use_aug=False)
-    loader = make_dataloader(dataset, batch_size=args.batch_size, num_workers=args.num_workers)
+    ship_specs = dataset.data_specs.input_specs if ship == 'uint8' else None
+    if args.multicrop:
+        dataset.multicrop = True
+        loader = make_unbatched_dataloader(dataset, num_workers=args.num_workers)
+    else:
+        loader = make_dataloader(dataset, batch_size=args.batch_size,
+                                 num_workers=args.num_workers)
 
     if args.dataset.startswith('h36m-'):
         known_depth = True
@@ -267,17 +313,20 @@ def main(argv=None):
     print(f'Use ground truth root joint depth? {known_depth}')
     print(f'Number of joints in evaluation: {len(included_joints)}')
 
-    forward = make_forward(model, model_desc['settings'].get('pixelwise_loss', 'jsd'))
+    forward = make_forward(model, model_desc['settings'].get('pixelwise_loss', 'jsd'),
+                           compute_dtype)
     rows, stats = run_evaluation_3d(forward, loader, included_joints, device,
                                     known_depth=known_depth, batch_size=args.batch_size,
-                                    print_progress=True)
+                                    print_progress=True, multicrop=args.multicrop,
+                                    ship_specs=ship_specs)
     print(metric_tables(rows))
     t_med = stats['median_inference_time']
     print('\nmedian inference time: ' + (f'{t_med:.6f}s per example' if t_med else 'n/a'))
     if stats['batches']:
         total = sum(stats['batch_seconds'])
-        print(f"{'device' if device.type == 'cuda' else 'host'} time per batch of "
-              f"{args.batch_size}: " + ', '.join(f'{s * 1e3:.3f}' for s in stats['batch_seconds'])
+        what = 'example (all crops)' if args.multicrop else f'batch of {args.batch_size}'
+        print(f"{'device' if device.type == 'cuda' else 'host'} time per {what}: "
+              + ', '.join(f'{s * 1e3:.3f}' for s in stats['batch_seconds'])
               + f" ms; {len(rows['mpjpe']) / total:.1f} images/s over {stats['batches']} batches")
     print(f"mean loss: {stats['mean_loss']}")
     return rows, stats

@@ -2,8 +2,10 @@
 """Train a 3D pose model on the card.
 
 Counterpart of ``margipose_tpu/bin/train_3d.py`` (reference:
-src/margipose/bin/train_3d.py), one process on one device, float32 with
-TF32 off. Usage mirrors the reference preset names::
+src/margipose/bin/train_3d.py), one process on one device: bf16 autocast on
+the card and float32 on the CPU unless ``precision`` says otherwise, the
+input uploaded as uint8 unless ``ship='float32'``. Usage mirrors the
+reference preset names::
 
     python -m margipose_tpu_torch.bin.train_3d with margipose_model synthetic \\
         epochs=2 batch_size=8
@@ -32,11 +34,13 @@ import numpy as np
 import torch
 
 from margipose_tpu_torch import resolve_device
-from margipose_tpu_torch.bin.eval_3d import DeviceClock, set_float32_parity_mode, to_device
+from margipose_tpu_torch.bin.eval_3d import DeviceClock, set_float32_parity_mode
 from margipose_tpu_torch.checkpoint import load_model
 from margipose_tpu_torch.config import Experiment
+from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model, data_specs_for_desc
+from margipose_tpu_torch.parallel.precision import resolve_dtype
 from margipose_tpu_torch.train import checkpoint as ckpt
 from margipose_tpu_torch.train.helpers import (
     create_train_dataloader,
@@ -96,22 +100,27 @@ ex.add_config(
     num_workers=4,
     metrics_every=10,         # batches between host-side mpjpe/pck evals
     checkpoint_every=1,       # epochs between checkpoint saves
-    precision='float32',      # float32 with TF32 off, the parity mode
+    precision=None,           # compute dtype: 'float32' (TF32 off, the parity
+                              # mode) or 'bfloat16' (autocast; float32 weights,
+                              # optimiser state and BN stats). None: bfloat16
+                              # on the card, float32 on the CPU
     profile_steps=0,          # >0: torch.profiler trace of that many batches of
                               # epoch 0 to <out_dir>/<id>/profile/trace.json
     device_aug=False,         # not ported yet (see NOT_PORTED)
     device_aug_canvas=0,      # not ported yet (see NOT_PORTED)
     prefetch_depth=2,         # batches uploaded ahead of the step that uses them
-    ship='float32',           # host->device input encoding; float32 only. The JAX
-                              # package's default 'uint8' is lossless, so the
-                              # results are the same
+    ship='uint8',             # host->device input encoding: 'uint8' requantises
+                              # the input to its exact source pixels (lossless,
+                              # 4x fewer bytes) and renormalises on the device,
+                              # which differs from the host's normalisation at
+                              # the last ulp; 'float32' uploads the host tensor.
+                              # 'uint8' under either precision, as in JAX
+                              # (eval's --ship auto keeps float32 for float32)
 )
 
 # Keys of the JAX bin whose non-default values this port does not run yet:
 # (key, is the value ported?, where ROADMAP.md queues it).
 NOT_PORTED = [
-    ('precision', lambda v: v in (None, 'float32'), 'section 1, bf16 autocast'),
-    ('ship', lambda v: v == 'float32', 'section 1, uint8 shipping'),
     ('device_aug', lambda v: not v, 'section 1, on-device augmentation'),
     ('device_aug_canvas', lambda v: not v, 'section 1, on-device augmentation'),
     ('pretrained_stem', lambda v: v is None, 'section 1, the ResNet stems and pretrained stems'),
@@ -131,14 +140,16 @@ def check_ported(cfg: dict) -> None:
                 f'(ROADMAP.md {item})')
 
 
-def device_prefetch(loader, device, depth=2):
+def device_prefetch(loader, device, depth=2, ship_specs=None):
     """(host batch, device batch) pairs, each upload enqueued up to ``depth``
     - 1 batches ahead of the step that uses it. The device batch holds the
-    input as NCHW float32, the target, joint mask and valid_depth."""
+    input as NCHW float32, the target, joint mask and valid_depth. With
+    ``ship_specs`` (an ``ImageSpecs``) the input goes up as uint8 pixels
+    (``requantize``) and is renormalised on the device."""
     queue = collections.deque()
     for batch in loader:
         queue.append((batch, {
-            'input': to_device(batch['input'], device).permute(0, 3, 1, 2).contiguous(),
+            'input': device_input(batch['input'], device, ship_specs),
             'target': to_device(np.asarray(batch['target'], np.float32), device),
             'joint_mask': to_device(np.asarray(batch['joint_mask'], np.float32), device),
             'valid_depth': to_device(np.asarray(batch['valid_depth'], np.int64), device),
@@ -151,9 +162,17 @@ def device_prefetch(loader, device, depth=2):
 def run_training(cfg: dict, device='cuda') -> dict:
     device = resolve_device(device)
     check_ported(cfg)
+    cfg = dict(cfg)
+    if cfg['precision'] is None:
+        cfg['precision'] = 'bfloat16' if device.type == 'cuda' else 'float32'
+    compute_dtype = resolve_dtype(cfg['precision'])
+    if cfg['ship'] not in ('uint8', 'float32'):
+        raise ValueError(f"ship={cfg['ship']!r}; expected 'uint8' or 'float32'")
     seed_all(cfg['seed'])
     init_algorithms(deterministic=cfg['deterministic'])
-    set_float32_parity_mode()
+    if compute_dtype == torch.float32:
+        set_float32_parity_mode()
+    print(f"Precision: {cfg['precision']}; input upload: {cfg['ship']}")
 
     experiment_id = cfg['experiment_id'] or datetime.datetime.now().strftime('%Y%m%d-%H%M%S%f')
     exp_out_dir = None
@@ -183,6 +202,7 @@ def run_training(cfg: dict, device='cuda') -> dict:
 
     # ---- Data ----
     data_specs = data_specs_for_desc(model_desc)
+    ship_specs = data_specs.input_specs if cfg['ship'] == 'uint8' else None
     train_loader = create_train_dataloader(
         cfg['train_datasets'], data_specs, cfg['batch_size'], cfg['train_examples'],
         cfg['use_aug'], num_workers=cfg['num_workers'], seed=cfg['seed'])
@@ -203,8 +223,8 @@ def run_training(cfg: dict, device='cuda') -> dict:
     if cfg['resume'] is not None:
         ckpt.restore_checkpoint(cfg['resume'], state)
     pixelwise_loss = model_desc['settings'].get('pixelwise_loss', 'jsd')
-    train_step = make_train_step(pixelwise_loss)
-    eval_step = make_eval_step(pixelwise_loss) if val_loader else None
+    train_step = make_train_step(pixelwise_loss, compute_dtype)
+    eval_step = make_eval_step(pixelwise_loss, compute_dtype) if val_loader else None
 
     # ---- Reporting ----
     tel = make_train_reporter(with_val=val_loader is not None, out_dir=exp_out_dir)
@@ -230,9 +250,9 @@ def run_training(cfg: dict, device='cuda') -> dict:
                 val_loader.set_epoch(epoch)
 
             step_seconds = do_training_pass(cfg, state, train_step, tel, train_loader, device,
-                                            exp_out_dir)
+                                            exp_out_dir, ship_specs)
             if val_loader is not None:
-                do_validation_pass(cfg, state, eval_step, tel, val_loader, device)
+                do_validation_pass(cfg, state, eval_step, tel, val_loader, device, ship_specs)
 
             # the schedule values the epoch's LAST update applied (update N
             # reads the counter at N-1)
@@ -293,7 +313,8 @@ def _host_metrics(batch, dataset, host_preds, tel, prefix):
         tel[f'{prefix}_pck'].add(m['pck'])
 
 
-def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir):
+def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir,
+                     ship_specs=None):
     """One epoch of train steps. Returns each step's seconds on the device
     (CUDA events on the card, the host clock on the CPU).
 
@@ -305,7 +326,7 @@ def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir):
     vis_done = False
     clock = DeviceClock(device)
     step_marks = []
-    batch_iter = device_prefetch(loader, device, cfg['prefetch_depth'])
+    batch_iter = device_prefetch(loader, device, cfg['prefetch_depth'], ship_specs)
     profiler = None
     if cfg['profile_steps'] and exp_out_dir and state.step == 0:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -387,7 +408,7 @@ def _stop_profiler(profiler, device, exp_out_dir):
     profiler.export_chrome_trace(path.join(out, 'trace.json'))
 
 
-def do_validation_pass(cfg, state, eval_step, tel, loader, device):
+def do_validation_pass(cfg, state, eval_step, tel, loader, device, ship_specs=None):
     """Validation epoch with windowed read-backs: eval steps are enqueued
     back to back, and each ``metrics_every``-batch window of losses and
     predictions comes back in two copies. Host metrics score every example
@@ -405,7 +426,8 @@ def do_validation_pass(cfg, state, eval_step, tel, loader, device):
             _host_metrics(batch, loader.dataset, host_preds, tel, 'val')
         pending.clear()
 
-    for batch, device_batch in device_prefetch(loader, device, cfg['prefetch_depth']):
+    for batch, device_batch in device_prefetch(loader, device, cfg['prefetch_depth'],
+                                               ship_specs):
         metrics = eval_step(state.model, device_batch)
         # keep only the host fields the metrics need, not the input images
         host_batch = {k: batch[k] for k in ('index', 'original_skel', 'camera_intrinsic',

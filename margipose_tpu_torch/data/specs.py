@@ -1,8 +1,9 @@
 """Input/output data specifications.
 
 (reference: src/margipose/data_specs.py:26-64). Images are numpy HWC float32
-(the eval bin turns a batch into NCHW on the device); ``convert`` maps a PIL image to a normalised
-array, ``unconvert`` inverts it.
+(the bins turn a batch into NCHW on the device); ``convert`` maps a PIL image
+to a normalised array, ``unconvert`` inverts it, and ``device_input`` uploads
+a batch, as uint8 (``requantize``, then ``device_renormalize``) or float32.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from collections.abc import Sequence
 
 import numpy as np
 import PIL.Image
+import torch
 
 
 class ImageSpecs:
@@ -64,6 +66,45 @@ class ImageSpecs:
             arr = arr + np.asarray(self.mean, dtype=np.float32)
         arr = np.clip(arr * 255.0, 0, 255).astype(np.uint8)
         return PIL.Image.fromarray(arr, "RGB")
+
+
+def device_renormalize(images: torch.Tensor, specs: ImageSpecs | None) -> torch.Tensor:
+    """Device-side inverse of ``ImageSpecs.requantize``: uint8 NHWC pixels ->
+    normalised float32 NCHW, ``(u/255 - mean)/std`` (counterpart of
+    ``margipose_tpu/data/specs.py::device_renormalize``, which stays NHWC).
+
+    The one definition every uint8-shipping path (eval, train, serve) uses.
+    It differs from the host's ``convert`` only at the last ulp. ``specs``
+    may be None (identity normalisation)."""
+    mean = specs.mean if specs is not None and specs.mean is not None else 0.0
+    std = specs.stddev if specs is not None and specs.stddev is not None else 1.0
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=images.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=images.device)
+    out = (images.to(torch.float32) / 255.0 - mean) / std
+    return out.permute(0, 3, 1, 2).contiguous()
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: through pinned memory, without waiting,
+    on the card."""
+    t = torch.from_numpy(arr)
+    if device.type == 'cuda':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def device_input(arr: np.ndarray, device: torch.device,
+                 ship_specs: ImageSpecs | None = None) -> torch.Tensor:
+    """A host NHWC input batch -> the model's NCHW float32 input on
+    ``device``: the one upload rule of eval, train and serve. With
+    ``ship_specs`` it goes up as its exact uint8 source pixels
+    (``requantize``: 4x fewer bytes, lossless; a uint8 ``arr`` is those
+    pixels already) and is renormalised there. Without, ``arr`` is the
+    host-normalised float32 input."""
+    if ship_specs is None:
+        return to_device(np.asarray(arr, np.float32), device).permute(0, 3, 1, 2).contiguous()
+    pixels = arr if arr.dtype == np.uint8 else ship_specs.requantize(arr)
+    return device_renormalize(to_device(np.ascontiguousarray(pixels), device), ship_specs)
 
 
 class JointsSpecs:

@@ -1,7 +1,7 @@
 """Seeding, cuDNN algorithm flags, skeleton drawing.
 
-Counterpart of ``margipose_tpu/utils.py:15-54`` (reference:
-src/margipose/utils.py:12-38,198-215).
+Counterpart of ``margipose_tpu/utils.py:15-80`` (reference:
+src/margipose/utils.py:12-38,124-170,198-215).
 """
 
 from __future__ import annotations
@@ -55,3 +55,27 @@ def draw_skeleton_2d(img: PIL.Image.Image, skel2d, skel_desc, width=2):
             fill=colour, width=width,
         )
     return img
+
+
+def plot_skeleton_on_axes3d(skel, skel_desc, ax, invert=True, alpha=1.0):
+    """3D matplotlib skeleton plot (reference: src/margipose/utils.py:124-170).
+
+    ``ax`` is a matplotlib 3D axes the caller made; this module imports no
+    matplotlib, so nothing on the card's path needs it. ``alpha`` dims a
+    skeleton so a prediction and a ground truth can share one axes."""
+    skel = np.asarray(skel)
+    for j, parent in enumerate(skel_desc.joint_tree):
+        if j == parent:
+            continue
+        colour = np.asarray(joint_colour(skel_desc.joint_names, skel_desc.hflip_indices, j)) / 255.0
+        xs = [skel[j, 0], skel[parent, 0]]
+        ys = [skel[j, 1], skel[parent, 1]]
+        zs = [skel[j, 2], skel[parent, 2]]
+        # plot with z up-ish: (x, z, -y) so the person stands upright
+        ax.plot(xs, zs, [-y for y in ys], color=tuple(colour), alpha=alpha)
+    ax.set_xlabel('x')
+    ax.set_ylabel('z')
+    ax.set_zlabel('-y')
+    if invert and hasattr(ax, 'invert_zaxis'):
+        ax.invert_zaxis()
+    return ax

@@ -4,7 +4,9 @@ One small checkpoint (inceptionv4, 2 stages, 64 px) is exported from a JAX
 MargiPose to the reference ``.pth`` format. The JAX bin
 (``margipose_tpu.bin.eval_3d.main``) and the port's
 (``margipose_tpu_torch.bin.eval_3d.main --device cpu``) both evaluate it on
-``synthetic-4`` at batch 2; their overall metrics and mean loss must agree.
+``synthetic-4`` at batch 2, and with ``--multicrop``; their overall metrics
+and mean loss must agree. ``--ship uint8`` and ``--precision bfloat16`` are
+held to the port's own float32 run.
 The port's drain window is also pinned as tests/test_eval_drain.py pins the
 JAX one: a scheduling detail that never changes the predictions.
 """
@@ -31,7 +33,8 @@ def checkpoint(tmp_path_factory):
     return path
 
 
-def test_eval_bin_matches_jax(checkpoint, monkeypatch, capsys):
+def _run_jax_eval(args, monkeypatch):
+    """The JAX eval bin on ``args``: (per-example table, stats)."""
     import margipose_tpu.native as native
 
     # the port has the PIL warp only; hold the JAX side to the same pixels
@@ -44,21 +47,80 @@ def test_eval_bin_matches_jax(checkpoint, monkeypatch, capsys):
         return captured['df'], captured['stats']
 
     monkeypatch.setattr(jax_eval_3d, 'run_evaluation_3d', capture)
-    args = ['--model', checkpoint, '--dataset', 'synthetic-4', '--batch-size', '2']
     jax_eval_3d.main(['eval'] + args, None)
-    rows, stats = eval_3d.main(args + ['--device', 'cpu'])
-    printed = capsys.readouterr().out
-    assert '### Overall' in printed and 'mean loss' in printed
+    return captured['df'], captured['stats']
 
-    expected = captured['df'][list(METRICS)].mean()
-    got = eval_3d.overall_metrics(rows)
-    assert len(rows['mpjpe']) == len(captured['df']) == 4
+
+def _assert_tables_agree(got, expected):
+    """Overall metrics: MPJPE within 0.1 mm, PCK and AUC within 1e-3."""
     for name in ('mpjpe', 'aligned_mpjpe'):
         assert abs(got[name] - expected[name]) <= 0.1, name
     for name in ('pck', 'auc', 'aligned_pck', 'aligned_auc'):
         assert abs(got[name] - expected[name]) <= 1e-3, name
-    np.testing.assert_allclose(stats['mean_loss'], captured['stats']['mean_loss'], rtol=1e-4)
+
+
+ARGS = ['--dataset', 'synthetic-4', '--batch-size', '2']
+
+
+@pytest.fixture(scope='module')
+def port_float32(checkpoint):
+    """The port's eval bin on the checkpoint with the defaults: float32, and
+    float32 upload under --ship auto. (rows, stats, printed output)"""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rows, stats = eval_3d.main(['--model', checkpoint, *ARGS, '--device', 'cpu'])
+    return rows, stats, printed.getvalue()
+
+
+def test_eval_bin_matches_jax(checkpoint, port_float32, monkeypatch):
+    df, jax_stats = _run_jax_eval(['--model', checkpoint, *ARGS], monkeypatch)
+    rows, stats, printed = port_float32
+    assert '### Overall' in printed and 'mean loss' in printed
+
+    assert len(rows['mpjpe']) == len(df) == 4
+    _assert_tables_agree(eval_3d.overall_metrics(rows), df[list(METRICS)].mean())
+    np.testing.assert_allclose(stats['mean_loss'], jax_stats['mean_loss'], rtol=1e-4)
     assert stats['batches'] == 2
+
+
+def test_multicrop_matches_jax(checkpoint, monkeypatch, capsys):
+    """--multicrop: one crop-averaged prediction per example from its 10
+    crops, unpadded, whatever --batch-size says."""
+    args = ['--model', checkpoint, '--dataset', 'synthetic-2', '--multicrop']
+    df, jax_stats = _run_jax_eval(args, monkeypatch)
+    rows, stats = eval_3d.main(args + ['--batch-size', '4', '--device', 'cpu'])
+    assert 'time per example (all crops)' in capsys.readouterr().out
+    assert len(rows['mpjpe']) == len(df) == 2 and stats['batches'] == 2
+    _assert_tables_agree(eval_3d.overall_metrics(rows), df[list(METRICS)].mean())
+    np.testing.assert_allclose(stats['mean_loss'], jax_stats['mean_loss'], rtol=1e-4)
+
+
+def test_uint8_shipping_matches_float32(checkpoint, port_float32, capsys):
+    """--ship uint8 uploads the exact source pixels and renormalises them on
+    the device: the tables agree with float32 upload's, which --ship auto
+    picks under --precision float32."""
+    rows_f32, stats_f32, printed = port_float32
+    assert 'Input upload: float32' in printed
+    rows_u8, stats_u8 = eval_3d.main(['--model', checkpoint, *ARGS, '--ship', 'uint8',
+                                      '--device', 'cpu'])
+    assert 'Input upload: uint8' in capsys.readouterr().out
+    _assert_tables_agree(eval_3d.overall_metrics(rows_u8), eval_3d.overall_metrics(rows_f32))
+    np.testing.assert_allclose(stats_u8['mean_loss'], stats_f32['mean_loss'], rtol=1e-4)
+
+
+def test_bfloat16_eval_runs(checkpoint, port_float32, capsys):
+    """--precision bfloat16 (autocast, uint8 upload under --ship auto): finite
+    tables, and a loss within 5% of the float32 run's."""
+    rows, stats = eval_3d.main(['--model', checkpoint, *ARGS, '--precision', 'bfloat16',
+                                '--device', 'cpu'])
+    printed = capsys.readouterr().out
+    assert 'Precision: bfloat16' in printed and 'Input upload: uint8' in printed
+    assert len(rows['mpjpe']) == 4
+    assert all(np.isfinite(rows[m]).all() for m in METRICS) and np.isfinite(stats['mean_loss'])
+    np.testing.assert_allclose(stats['mean_loss'], port_float32[1]['mean_loss'], rtol=0.05)
 
 
 class _FakeLoader:

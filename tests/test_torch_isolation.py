@@ -33,14 +33,16 @@ def _forbidden(name: str) -> bool:
 
 
 def test_importing_every_port_module_loads_no_jax():
+    """Nor matplotlib: only infer's PNG needs it, and it imports it there."""
     modules = _port_modules()
-    assert 'margipose_tpu_torch.bin.eval_3d' in modules
-    assert 'margipose_tpu_torch.ops.dsnt_jsd' in modules
+    for name in ('bin.eval_3d', 'bin.train_3d', 'bin.infer_single', 'bin.serve',
+                 'ops.dsnt_jsd', 'ops.image', 'parallel.precision'):
+        assert f'margipose_tpu_torch.{name}' in modules
     code = (
         'import importlib, sys\n'
         f'for name in {modules!r}:\n'
         '    importlib.import_module(name)\n'
-        f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
+        f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN + ('matplotlib',)!r}]\n'
         'print(sorted(bad))\n'
     )
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
@@ -83,3 +85,16 @@ def test_eval_bin_defaults_to_cuda():
     from margipose_tpu_torch.bin.eval_3d import parse_args
 
     assert parse_args(['--model', 'x.pth']).device == 'cuda'
+
+
+def test_infer_and_serve_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from margipose_tpu_torch.bin import infer_single, serve
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    # the device is resolved before the checkpoint is read
+    with pytest.raises(RuntimeError, match='is_available'):
+        infer_single.main(['--model', 'missing.pth', '--image', 'missing.jpg'])
+    with pytest.raises(RuntimeError, match='is_available'):
+        serve.create_server('missing.pth', warmup=False)
+    with pytest.raises(RuntimeError, match='is_available'):
+        serve.main(['--model', 'missing.pth', '--port', '0'])

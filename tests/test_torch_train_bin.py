@@ -192,13 +192,48 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize('override', [
-    "precision='bfloat16'",
-    "ship='uint8'",
+    'device_aug_canvas=64',
+    'preserve_root_joint_at_univ_scale=True',
     'device_aug=True',
     "pretrained_stem='inceptionv4.pth'",
     "train_datasets=['synthetic-16', 'synthetic-8']",
 ])
 def test_keys_left_out_raise(tmp_path, override):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        train_3d.main(_argv(str(tmp_path), override))
+    assert not os.listdir(tmp_path)
+
+
+def test_bf16_and_uint8_shipping_train_a_step(first_run, tmp_path, capsys):
+    """precision='bfloat16' (autocast on the CPU) with ship='uint8' trains:
+    finite losses, float32 weights, a checkpoint. The defaults resolve as
+    the JAX bin's do: uint8 shipping, and float32 on the CPU."""
+    out, _ = first_run
+    with open(os.path.join(out, 'run', 'config.json')) as f:
+        config = json.load(f)
+    assert (config['precision'], config['ship']) == ('float32', 'uint8')
+    assert train_3d.ex.parse(['with', 'margipose_model'])['precision'] is None
+    assert not {'precision', 'ship'} & {key for key, _, _ in train_3d.NOT_PORTED}
+    result = train_3d.main(_argv(str(tmp_path), "precision='bfloat16'", "ship='uint8'",
+                                 'epochs=1'))
+    assert 'Precision: bfloat16; input upload: uint8' in capsys.readouterr().out
+    assert result['step'] == 2 and np.isfinite(result['train_loss'])
+    state = _final_state(str(tmp_path))
+    assert all(v.dtype == torch.float32 for k, v in state['model'].items()
+               if not k.endswith('num_batches_tracked'))
+
+
+def test_uint8_shipping_trains_as_float32_does(first_run, tmp_path):
+    """uint8 shipping (the default, as in the first run) is lossless up to
+    the renormalisation's last ulp: the same run with ship='float32' ends
+    with the same loss, to float32 noise."""
+    _, uint8_result = first_run
+    result = train_3d.main(_argv(str(tmp_path), "ship='float32'"))
+    np.testing.assert_allclose(result['train_loss'], uint8_result['train_loss'], rtol=1e-4)
+
+
+@pytest.mark.parametrize('override', ["precision='float16'", "ship='int8'"])
+def test_unknown_precision_or_ship_raises(tmp_path, override):
+    with pytest.raises(ValueError):
         train_3d.main(_argv(str(tmp_path), override))
     assert not os.listdir(tmp_path)
