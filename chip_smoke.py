@@ -31,7 +31,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                    both kernels must have launched once a step (and the
                    forward once a validation batch);
   8. train trace   torch.profiler over one train step at batch 32;
-  9. train parity  one train step at batch 2 on the card against the CPU;
+  9. train parity  one train step at batch 2 on the card against the CPU,
+                   and two steps on the card with a planted fault (one
+                   example's loss dropped, one batch norm's gradients
+                   zeroed) that its rule must reject;
  10. bf16 eval     bin.eval_3d at batch 32 with --precision bfloat16 --ship
                    uint8 (the forward kernel once a batch), bf16 against
                    float32 coordinates on one batch, and a profiled bf16
@@ -47,12 +50,34 @@ Phases, each printing its own lines; any failure exits non-zero:
                    16 concurrent /predict requests, /healthz, /info,
                    /metrics, then 4 requests one at a time; served
                    coordinates against a direct runner call (timed); one
-                   float32 request against the CPU.
-The float32 phases (4-9) pass precision float32 and float32 input upload
-explicitly. Each path's kernel launches are counted from 0 around it. Then
-one JSON line of per-kernel numbers, and last the result line
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
-no result.
+                   float32 request against the CPU;
+ 15. host ops      the port's host-ops library (csrc/host_ops.cpp, built by
+                   g++ in phase 2) against the port's PIL path on
+                   resources/man_running.jpg: the warp and the fused warp +
+                   colour jitter, within the uint8 LSBs the JAX package's
+                   note allows, timed per example;
+ 16. stems         MargiPose with each ResNet stem (resnet18/34/50), 4
+                   stages, 256 px: the forward card against CPU at batch 2,
+                   a batch of 32 timed; resnet34 traced (eval and train, float32
+                   and bf16); then bin.train_3d with the resnet34 stem grafted
+                   from a torchvision-format backbone the script writes from
+                   seeded tensors (pretrained_stem), 2 steps at batch 32 and a
+                   validation batch: both kernels once a step;
+ 17. chatterbox    Chatterbox v1.3.0 (Default_Chatterbox_Desc) at full width,
+                   seeded random weights, calibrated BN: bin.eval_3d on
+                   synthetic-64 at batch 32 in float32 and in bf16 with uint8
+                   upload (the forward kernel once a batch, 3 groups), traces;
+                   card against CPU at batch 2; bin.train_3d with the
+                   chatterbox_model preset, 3 steps at batch 32 and a
+                   validation batch (both kernels once a step); traced train
+                   steps in float32 and bf16; one train step at batch 2 card
+                   against CPU, and its planted faults; bin.infer_single.infer_image card against CPU.
+The float32 phases (4-9 and the float32 parts of 16-17) pass precision
+float32 and float32 input upload explicitly. Each path's kernel launches are
+counted from 0 around it. Then one JSON line of per-kernel numbers, and last
+the result line {"ok": true, "device": {...}}. Without a CUDA device it
+exits 1 and prints no result. The flagship's train paths run 4 steps; the
+later paths run 2-3 to keep the script near 5 minutes.
 """
 
 from __future__ import annotations
@@ -85,16 +110,24 @@ ATOL_GRAD = 1e-5
 KERNEL_SHAPES = [  # (G groups, B, J, H, W, sigma, pointer offset in floats)
     (12, 32, 17, 32, 32, 1.0, 0),  # the main paths': 4 stages x 3 planes at batch 32
     (12, 10, 17, 32, 32, 1.0, 0),  # the multicrop eval's: one example's 10 crops
+    (3, 32, 17, 32, 32, 1.0, 0),   # Chatterbox's: 1 stage x 3 planes at batch 32
     (1, 1, 17, 32, 32, 1.0, 0),    # one group (dsnt_jsd_fused), B = 1
     (3, 1, 13, 16, 24, 2.0, 0),    # the generic layout: non-square, sigma 2
     (2, 1, 13, 7, 9, 1.5, 0),      # the generic layout: H*W % 4 != 0
     (2, 2, 17, 32, 32, 1.0, 1),    # the generic layout: 32x32 off 16-byte alignment
 ]
 MAIN_SHAPE = (12, 32, 32, 32, 0)  # the main paths' (G, B, H, W, offset): 17 joints
+CHATTERBOX_SHAPE = (3, 32, 32, 32, 0)
 SWEEP_ROWS = [(1, 1, 13), (1, 32, 17), (12, 32, 17)]  # (G, B, J): 13, 544, 6528 rows
 PALLAS = 'margipose_tpu/ops/pallas_dsnt.py'
 TRAIN_STEPS = 4            # the train path's steps at batch 32
 MULTICROP_EXAMPLES = 4     # the multicrop eval's examples, 10 crops each
+STEMS = ('resnet18', 'resnet34', 'resnet50')
+STEM_TRAIN_STEPS = 2       # the resnet34 stem's train path at batch 32
+CHATTERBOX_STEPS = 3       # the Chatterbox train path at batch 32
+# Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
+# weights (mean peaks about 0.15-0.25)
+CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
 SERVE_REQUESTS = 16        # concurrent /predict requests to the bf16 server
 SERVE_ALONE = 4            # then requests one at a time
 IMAGE = os.path.join(ROOT, 'resources', 'man_running.jpg')
@@ -149,7 +182,7 @@ def device_phase():
 def build_phase():
     from margipose_tpu_torch.ops import _build
 
-    names = _build.kernel_sources()
+    names = _build.kernel_sources() + ['host_ops']
     t0 = time.perf_counter()
     _build.build(names)
     phase('build', f'{names} built in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}')
@@ -252,6 +285,9 @@ def kernel_phase():
         if (g, b, h, w, offset) == MAIN_SHAPE:
             report.update(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        if (g, b, h, w, offset) == CHATTERBOX_SHAPE:
+            report['chatterbox'] = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
     report['max_abs_err'] = worst
     return report
 
@@ -317,6 +353,10 @@ def backward_kernel_phase():
         if (g, b, h, w, offset) == MAIN_SHAPE:
             report.update(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        if (g, b, h, w, offset) == CHATTERBOX_SHAPE:
+            report['chatterbox'] = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by,
+                                        max_abs_err=max(err, autograd_err))
     report['max_abs_err'] = worst
     return report
 
@@ -365,6 +405,19 @@ def randomize_batch_norm(model, images, generator):
     """BN running stats from one train-mode pass over ``images``, perturbed
     at random; the last residual block of every column scaled down, so the
     heatmaps are neither flat nor one-hot (as with trained weights)."""
+    calibrate_bn(model, images, generator)
+    for plane in ('xy', 'zy', 'xz'):
+        for column in getattr(model.inner, f'{plane}_hm_cnns'):
+            last = column.up_layers[4]
+            for bn in (last.module[4], last.shortcut[1]):
+                bn.weight *= 0.5
+                bn.bias *= 0.5
+
+
+@torch.no_grad()
+def calibrate_bn(model, images, generator):
+    """BN running stats from one train-mode pass over ``images``, perturbed
+    at random."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for bn in bns:
         bn.reset_running_stats()
@@ -376,12 +429,6 @@ def randomize_batch_norm(model, images, generator):
         n = bn.num_features
         bn.running_mean += 0.05 * torch.randn(n, generator=generator).to(bn.running_mean)
         bn.running_var *= (0.8 + 0.45 * torch.rand(n, generator=generator)).to(bn.running_var)
-    for plane in ('xy', 'zy', 'xz'):
-        for column in getattr(model.inner, f'{plane}_hm_cnns'):
-            last = column.up_layers[4]
-            for bn in (last.module[4], last.shortcut[1]):
-                bn.weight *= 0.5
-                bn.bias *= 0.5
 
 
 def flagship(device):
@@ -504,7 +551,7 @@ def trace_phase(model, precision='float32', name='trace'):
     return window, events
 
 
-def parity_phase(model):
+def parity_phase(model, name='parity'):
     """The port on the card against the port on the CPU, float32, TF32 off."""
     from margipose_tpu_torch.models.margipose import margipose_masked_loss
 
@@ -525,9 +572,9 @@ def parity_phase(model):
     hm_err = max((a - b).abs().max().item() for a, b in zip(hm_gpu, hm_cpu))
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     peak = max(h.max().item() for h in hm_cpu)
-    phase('parity', f'card vs CPU: heatmaps max abs err {hm_err:.3g} (atol 1e-4, peak value '
-                    f'{peak:.3f}), loss {loss_gpu:.6f} vs {loss_cpu:.6f}, rel err {loss_rel:.3g} '
-                    f'(rtol 1e-3)')
+    phase(name, f'card vs CPU: heatmaps max abs err {hm_err:.3g} (atol 1e-4, peak value '
+                f'{peak:.3f}), loss {loss_gpu:.6f} vs {loss_cpu:.6f}, rel err {loss_rel:.3g} '
+                f'(rtol 1e-3)')
     if not (hm_err <= 1e-4 and loss_rel <= 1e-3):
         raise AssertionError('the port on the card disagrees with the port on the CPU')
 
@@ -633,47 +680,85 @@ def train_trace_phase(model, precision='float32', name='train trace'):
                     f'(elementwise, ReLU, copies)')
 
 
-def train_parity_phase(model):
-    """One train step at batch 2 from the same weights and batch on the card
-    and on the CPU, float32, TF32 off. Tolerances:
-      loss        rtol 1e-3, as the eval parity;
-      parameters  1e-4 + 2% of the largest update the CPU step made to the
-                  tensor: train-mode batch norm over few values a channel
-                  amplifies rounding (tests/test_torch_train_step.py measures
-                  the port's float32 step 1% of the update away from its
-                  float64 step at 2 stages, 64 px);
-      BN buffers  rtol 1e-4, atol 1e-5."""
+def train_step_state(model, device, batch, frozen=None):
+    """The loss and the state_dict (float64, on the CPU) after one 1cycle
+    step at ``batch`` from ``model``'s weights, float32 on ``device``;
+    ``frozen`` names a batch norm whose gradients are zeroed (a planted
+    fault)."""
     from margipose_tpu_torch.train.schedules import make_optimiser
     from margipose_tpu_torch.train.steps import TrainState, make_train_step
 
+    m = copy.deepcopy(model).to(device, torch.float32)
+    if frozen:
+        bn = m.get_submodule(frozen)
+        for p in (bn.weight, bn.bias):
+            p.register_hook(torch.zeros_like)
+    state = TrainState(m, make_optimiser('1cycle', m.parameters(), 1.0, max_iters=10))
+    metrics = make_train_step('jsd')(state, {
+        k: v.to(device, torch.float32) if v.is_floating_point() else v.to(device)
+        for k, v in batch.items()})
+    return float(metrics['loss']), {k: v.detach().cpu().double()
+                                    for k, v in m.state_dict().items()}
+
+
+def worst_update_share(got, want, initial):
+    """The worst parameter tensor's distance from ``want`` as a share of its
+    tolerance: 10% of the update ``want`` made to it, in L2, plus 1e-6 RMS
+    (a tensor the step leaves still must stay within 1e-6 RMS). Returns
+    (share, tensor)."""
+    return max(((got[k] - want[k]).norm().item() / (
+        0.1 * (want[k] - initial[k]).norm().item() + 1e-6 * want[k].numel() ** 0.5), k)
+        for k in want if 'running_' not in k and not k.endswith('num_batches_tracked'))
+
+
+def train_parity_phase(model, name='train parity'):
+    """One train step at batch 2 from the same weights and batch on the card
+    and on the CPU, float32, TF32 off. Tolerances:
+      loss        rtol 1e-3, as the eval parity;
+      parameters  each tensor within 10% of the CPU step's update to it in
+                  L2, plus 1e-6 RMS for a tensor the step leaves still:
+                  train-mode batch norm over few values a channel amplifies
+                  rounding into single elements (Chatterbox's float32 step
+                  at batch 2 moves elements by up to a third of a tensor's
+                  largest update from a float64 step, on the card and the
+                  CPU alike; PERF.md §6), not into whole tensors;
+      BN buffers  rtol 1e-4, atol 1e-5.
+    Then the rule's power: the same step on the card with a fault planted,
+    one example's loss dropped or one batch norm's gradients zeroed, must
+    fail it."""
     batch = flagship_batch(2, seed=3)
-    initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    results = {}
-    for dev in ('cuda', 'cpu'):
-        m = copy.deepcopy(model).to(dev)
-        state = TrainState(m, make_optimiser('1cycle', m.parameters(), 1.0, max_iters=10))
-        metrics = make_train_step('jsd')(state, {k: v.to(dev) for k, v in batch.items()})
-        results[dev] = (float(metrics['loss']),
-                        {k: v.detach().cpu() for k, v in m.state_dict().items()})
-    (loss_gpu, gpu), (loss_cpu, cpu) = results['cuda'], results['cpu']
+    initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    loss_gpu, gpu = train_step_state(model, 'cuda', batch)
+    loss_cpu, cpu = train_step_state(model, 'cpu', batch)
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    worst_param, worst_buffer = (0.0, ''), (0.0, '')
-    for key, want in cpu.items():
-        err = (gpu[key].double() - want.double()).abs()
-        if key.endswith('num_batches_tracked'):
-            continue
-        if 'running_' in key:
-            ratio = (err / (1e-5 + 1e-4 * want.double().abs())).max().item()
-            worst_buffer = max(worst_buffer, (ratio, key))
-        else:
-            update = (want - initial[key]).abs().max().item()
-            worst_param = max(worst_param, (err.max().item() / (1e-4 + 0.02 * update), key))
-    phase('train parity', f'one step at batch 2, card vs CPU: loss {loss_gpu:.6f} vs '
-                          f'{loss_cpu:.6f}, rel err {loss_rel:.3g} (rtol 1e-3); worst parameter '
-                          f'at {worst_param[0]:.3g} of its tolerance ({worst_param[1]}); worst BN '
-                          f'buffer at {worst_buffer[0]:.3g} of its tolerance ({worst_buffer[1]})')
-    if not (loss_rel <= 1e-3 and worst_param[0] <= 1 and worst_buffer[0] <= 1):
+    share = worst_update_share(gpu, cpu, initial)
+    still = [k for k in cpu if 'running_' not in k and not k.endswith('num_batches_tracked')
+             and (cpu[k] - initial[k]).norm().item() <= 1e-6 * cpu[k].numel() ** 0.5]
+    moved_still = max([(gpu[k] - initial[k]).norm().item() / gpu[k].numel() ** 0.5
+                       for k in still], default=0.0)
+    worst_buffer = max(((gpu[k] - cpu[k]).abs() / (1e-5 + 1e-4 * cpu[k].abs())).max().item()
+                       for k in cpu if 'running_' in k)
+    phase(name, f'one step at batch 2, card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f}, rel '
+                f'err {loss_rel:.3g} (rtol 1e-3); worst parameter tensor at {share[0]:.4f} of '
+                f'10% of its update + 1e-6 RMS ({share[1]}); {len(still)} tensors the CPU left '
+                f'still, moved on the card by {moved_still:.3g} RMS at most; worst BN buffer at '
+                f'{worst_buffer:.3g} of its tolerance')
+    dropped = {**batch, 'joint_mask': batch['joint_mask'].clone()}
+    dropped['joint_mask'][0] = 0
+    bns = [n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    frozen = bns[len(bns) // 2]
+    faults = {'example 0 dropped from the loss': train_step_state(model, 'cuda', dropped)[1],
+              f'{frozen} gradients zeroed': train_step_state(model, 'cuda', batch, frozen)[1]}
+    caught = True
+    for fault, state in faults.items():
+        fault_share = worst_update_share(state, cpu, initial)
+        caught = caught and fault_share[0] > 1
+        phase(name, f'planted fault, {fault}: worst parameter tensor at {fault_share[0]:.4g} of '
+                    f'its tolerance ({fault_share[1]})')
+    if not (loss_rel <= 1e-3 and share[0] <= 1 and worst_buffer <= 1):
         raise AssertionError('a train step on the card disagrees with one on the CPU')
+    if not caught:
+        raise AssertionError('the train parity rule passed a step with a planted fault')
 
 
 def statistically_close(a, b):
@@ -789,7 +874,7 @@ def bf16_train_phase():
     return launches
 
 
-def infer_phase(model):
+def infer_phase(model, desc=None, name='infer'):
     """bin.infer_single.infer_image on resources/man_running.jpg, one crop
     and ten, on the card against the CPU, float32 (TF32 off)."""
     import PIL.Image
@@ -798,24 +883,25 @@ def infer_phase(model):
     from margipose_tpu_torch.bin.infer_single import infer_image
     from margipose_tpu_torch.models import Default_MargiPose_Desc
 
+    desc = desc or Default_MargiPose_Desc
     set_float32_parity_mode()
     cpu_model = copy.deepcopy(model).cpu()
     image = PIL.Image.open(IMAGE)
     counters = reset_counts()
     for multicrop in (False, True):
         t0 = time.perf_counter()
-        inp, coords = infer_image(model, image, Default_MargiPose_Desc, multicrop, 'cuda')
+        inp, coords = infer_image(model, image, desc, multicrop, 'cuda')
         card_s = time.perf_counter() - t0
-        _, cpu_coords = infer_image(cpu_model, image, Default_MargiPose_Desc, multicrop, 'cpu')
+        _, cpu_coords = infer_image(cpu_model, image, desc, multicrop, 'cpu')
         err = float(np.abs(coords - cpu_coords).max())
-        phase('infer', f'{"10 crops" if multicrop else "one crop"}: input {inp.shape}, coords '
+        phase(name, f'{"10 crops" if multicrop else "one crop"}: input {inp.shape}, coords '
                        f'{coords.shape}, card vs CPU max abs err {err:.3g} (atol 1e-4); '
                        f'{card_s * 1e3:.1f} ms on the host clock, card')
         if not (coords.shape == (17, 3) and np.isfinite(coords).all() and err <= 1e-4):
             raise AssertionError('infer on the card disagrees with the CPU')
     launches = read_counts(counters)
-    phase('infer', f'kernel launches {launches} (the JAX infer has no Pallas either: DSNT in '
-                   f'plain ops, no loss)')
+    phase(name, f'kernel launches {launches} (the JAX infer has no Pallas either: DSNT in '
+                f'plain ops, no loss)')
     return launches
 
 
@@ -922,6 +1008,260 @@ def serve_phase(ckpt):
     return launches
 
 
+def host_ops_phase():
+    """The host-ops library g++ built in the build phase against the port's
+    PIL path on the photo: the warp within 1 uint8 LSB (PIL rounds its
+    intermediates), the fused warp + colour jitter within a mean of 3 LSBs
+    (PIL quantises after each colour pass; the JAX package's note and
+    tests/test_native.py allow that)."""
+    import PIL.Image
+
+    from margipose_tpu_torch import native
+    from margipose_tpu_torch.geometry.transforms import (
+        adjust_colour_pil,
+        build_affine,
+        warp_image_pil,
+    )
+
+    if not native.available():
+        raise AssertionError('the host-ops library is disabled (MARGIPOSE_DISABLE_NATIVE)')
+    photo = PIL.Image.open(IMAGE).convert('RGB')
+    src = np.asarray(photo)
+    # a rotated, mirrored 256 px crop whose footprint lies inside the photo
+    affine = build_affine(dict(centre_x=256, centre_y=250, rotation=17.0, scale=0.6, hflip=True,
+                               in_width=photo.width, in_height=photo.height, out_width=256,
+                               out_height=256))
+    jitter = dict(brightness=1.15, contrast=0.9, saturation=1.2, hue=0.05)
+    timings = {}
+
+    def timed(name, fn, reps=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        timings[name] = (time.perf_counter() - t0) / reps * 1e3
+        return out
+
+    warped = timed('native warp', lambda: native.warp_rgb(src, affine, (256, 256)))
+    pil = timed('PIL warp', lambda: np.asarray(warp_image_pil(photo, affine, (256, 256))))
+    fused = timed('native warp + colour', lambda: native.warp_colour_norm(
+        src, affine, (256, 256), **jitter))
+    pil_fused = timed('PIL warp + colour', lambda: np.asarray(adjust_colour_pil(
+        warp_image_pil(photo, affine, (256, 256)), **jitter)))
+    warp_err = int(np.abs(warped.astype(int) - pil.astype(int)).max())
+    fused_err = float(np.abs(fused - pil_fused / np.float32(255.0)).mean() * 255.0)
+    phase('host ops', f'warp_rgb vs PIL: max {warp_err} uint8 LSB (<= 1); warp_colour_norm vs '
+                      f'PIL warp + colour passes: mean {fused_err:.3f} LSB (< 3)')
+    phase('host ops', 'host ms per 256x256 example (one thread, host CPU): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in timings.items()))
+    if not (warp_err <= 1 and fused_err < 3.0):
+        raise AssertionError('the host-ops library disagrees with the PIL path')
+
+
+def stem_desc(variant):
+    return {'type': 'margipose', 'version': '6.0.1',
+            'settings': {'n_stages': 4, 'axis_permutation': True, 'feature_extractor': variant,
+                         'pixelwise_loss': 'jsd'}}
+
+
+def eval_window_ms(model, precision):
+    """Device ms of one forward + masked loss at batch 32 (CUDA events, after
+    a warm-up)."""
+    from margipose_tpu_torch.bin.eval_3d import make_forward
+
+    batch = {k: v.cuda() for k, v in flagship_batch(32, seed=2).items()}
+    forward = make_forward(model, 'jsd', precision)
+    args = (batch['input'], batch['target'], batch['joint_mask'], batch['valid_depth'])
+    forward(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    forward(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def stems_phase():
+    """MargiPose with each ResNet stem at 4 stages and 256 px, seeded random
+    weights with calibrated BN: card against CPU at batch 2, a batch of 32
+    timed; resnet34 traced; then the resnet34 train path with a grafted
+    backbone."""
+    from margipose_tpu_torch.models import create_model
+
+    for variant in STEMS:
+        g = torch.Generator().manual_seed(20)
+        model = create_model(stem_desc(variant), generator=g).cuda()
+        randomize_batch_norm(model, torch.randn(8, 3, 256, 256, generator=g).cuda(), g)
+        parity_phase(model, f'{variant} parity')
+        phase(f'{variant}', f'one batch of 32, forward + loss: {eval_window_ms(model, "float32"):.3f} '
+                            f'ms float32, {eval_window_ms(model, "bfloat16"):.3f} ms bf16 (CUDA '
+                            f'events)')
+        if variant == 'resnet34':
+            trace_phase(model, 'float32', 'resnet34 trace')
+            trace_phase(model, 'bfloat16', 'resnet34 bf16 trace')
+            train_trace_phase(model, 'float32', 'resnet34 train trace')
+            train_trace_phase(model, 'bfloat16', 'resnet34 bf16 train trace')
+        del model
+    return stem_train_phase()
+
+
+def write_backbone(path, variant, seed):
+    """A torchvision-format backbone state_dict of seeded random tensors:
+    conv1, bn1, layer1, layer2 at the stem's shapes, and a layer3 block and
+    a classifier that the graft ignores. Returns it."""
+    from margipose_tpu_torch.models.resnet import ResNetStem
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(key, value):
+        if value.dtype == torch.int64:  # num_batches_tracked
+            return value
+        noise = torch.randn(value.shape, generator=gen)
+        if value.dim() == 4:  # conv weights, about Kaiming's scale
+            return noise * (2.0 / value[0].numel()) ** 0.5
+        if key.endswith('running_var') or key.endswith('weight'):
+            return 1.0 + 0.2 * noise.abs()
+        return 0.1 * noise  # BN biases and running means
+
+    heads = {'0': 'conv1', '1': 'bn1', '4': 'layer1', '5': 'layer2'}
+    backbone = {}
+    for key, value in ResNetStem(variant).state_dict().items():
+        head, _, rest = key.partition('.')
+        if head in heads:
+            backbone[f'{heads[head]}.{rest}'] = draw(key, value)
+    backbone['layer3.0.conv1.weight'] = torch.randn(256, 128, 3, 3, generator=gen)
+    backbone['fc.weight'] = torch.randn(1000, 512, generator=gen)
+    torch.save(backbone, path)
+    return backbone
+
+
+def train_bin_phase(name, words, steps, experiment_id):
+    """bin.train_3d on ``words`` at batch 32 for ``steps`` steps and one
+    validation batch: both kernels once a step (the forward also once for the
+    validation batch). Returns (launches, result, checkpoint directory)."""
+    from margipose_tpu_torch.bin import train_3d
+
+    out_dir = os.path.join(WORK, experiment_id)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counters = reset_counts()
+    result = train_3d.main(['with', *words, 'epochs=1', 'batch_size=32',
+                            f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
+                            'val_examples=32', 'metrics_every=1', 'seed=9', f'out_dir={out_dir}',
+                            f'experiment_id={experiment_id}'])
+    launches = read_counts(counters)
+    expected = {'dsnt_jsd_fwd': steps + 1, 'dsnt_jsd_bwd': steps}
+    phase(name, f'kernel launches {launches}, expected {expected}')
+    with open(os.path.join(out_dir, experiment_id, 'metrics.jsonl')) as f:
+        val_loss = json.loads(f.readline())['val_loss']
+    if launches != expected or result['step'] != steps:
+        raise AssertionError(f'{name} launched {launches} in {result["step"]} steps, '
+                             f'expected {expected} in {steps}')
+    if not (math.isfinite(result['train_loss']) and math.isfinite(val_loss)):
+        raise AssertionError(f'{name}: train loss {result["train_loss"]}, val loss {val_loss}')
+    ms = [s * 1e3 for s in result['step_seconds']]
+    phase(name, f'train loss {result["train_loss"]:.6f}, val loss {val_loss:.6f}; device ms per '
+                f'step of 32: first {ms[0]:.3f} (cuDNN\'s algorithm search), then '
+                f'{", ".join(f"{m:.3f}" for m in ms[1:])}; data_load_time '
+                f'{result["data_load_time"]:.4f} s a step')
+    return launches, result, os.path.join(out_dir, experiment_id, 'model-latest')
+
+
+def stem_train_phase():
+    """bin.train_3d on MargiPose with the resnet34 stem, 4 stages, the stem
+    grafted from a backbone file (pretrained_stem): after STEM_TRAIN_STEPS
+    steps the stem lies nearer the backbone's weights than the fresh draw
+    the run would have started from without the graft."""
+    from margipose_tpu_torch.models import create_model
+    from margipose_tpu_torch.train import checkpoint
+
+    path = os.path.join(WORK, 'resnet34-backbone.pth')
+    os.makedirs(WORK, exist_ok=True)
+    backbone = write_backbone(path, 'resnet34', seed=21)
+    launches, _, ckpt_dir = train_bin_phase(
+        'stem train', ['margipose_model', 'synthetic',
+                       "model_desc={'settings': {'feature_extractor': 'resnet34'}}",
+                       f"pretrained_stem='{path}'", "precision='float32'", "ship='float32'"],
+        STEM_TRAIN_STEPS, 'resnet34')
+    saved = checkpoint.load_payload(ckpt_dir)['model']['inner.in_cnn.4.2.conv2.weight']
+    fresh = create_model(stem_desc('resnet34'), generator=torch.Generator().manual_seed(9))
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+    to_backbone = cosine(saved, backbone['layer1.2.conv2.weight'])
+    to_fresh = cosine(saved, fresh.state_dict()['inner.in_cnn.4.2.conv2.weight'])
+    phase('stem train', f'layer1.2.conv2 after {STEM_TRAIN_STEPS} steps: cosine {to_backbone:.4f} '
+                        f'to the backbone\'s, {to_fresh:.4f} to the fresh draw (seed 9)')
+    if not to_backbone > max(0.5, to_fresh):
+        raise AssertionError('the resnet34 stem did not start from the pretrained backbone')
+    return {'stem_train': launches}
+
+
+def eval_bin_phase(name, ckpt, precision, ship, examples=64):
+    """bin.eval_3d on synthetic-``examples`` at batch 32: the forward kernel
+    once a batch, finite metrics. Returns the launches."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    counters = reset_counts()
+    rows, stats = eval_3d.main(['--model', ckpt, '--dataset', f'synthetic-{examples}',
+                                '--batch-size', '32', '--precision', precision, '--ship', ship,
+                                '--device', 'cuda'])
+    launches = read_counts(counters)
+    expected = {'dsnt_jsd_fwd': stats['batches'], 'dsnt_jsd_bwd': 0}
+    phase(name, f'kernel launches {launches}, expected {expected}')
+    if launches != expected or not stats['batches']:
+        raise AssertionError(f'{name} launched {launches}, expected {expected}')
+    finite = all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m])
+    if not (finite and math.isfinite(stats['mean_loss']) and len(rows['mpjpe']) == examples):
+        raise AssertionError(f'{name} gave non-finite metrics or loss, or lost examples')
+    ms = [s * 1e3 for s in stats['batch_seconds']]
+    phase(name, f'device ms per batch of 32: {", ".join(f"{m:.3f}" for m in ms)}; mean loss '
+                f'{stats["mean_loss"]}; overall {eval_3d.overall_metrics(rows)}')
+    return launches
+
+
+@torch.no_grad()
+def chatterbox(device):
+    """Chatterbox from seeded random weights: calibrated, perturbed BN stats
+    and the heads' last convolutions scaled down (soft heatmaps)."""
+    from margipose_tpu_torch.models import Default_Chatterbox_Desc, create_model
+
+    g = torch.Generator().manual_seed(30)
+    model = create_model(Default_Chatterbox_Desc, generator=g).to(device)
+    calibrate_bn(model, torch.randn(8, 3, 256, 256, generator=g).to(device), g)
+    for head, conv in (('xy_hm_cnn', model.xy_hm_cnn.hm_conv),
+                       ('zy_hm_cnn', model.zy_hm_cnn.up_convs[7]),
+                       ('xz_hm_cnn', model.xz_hm_cnn.up_convs[7])):
+        conv.weight *= CHATTERBOX_HEAD_SCALES[head]
+    return model.eval()
+
+
+def chatterbox_phase():
+    """Chatterbox through its entry points: eval (float32, bf16 with uint8
+    upload), train (the chatterbox_model preset), infer; card against CPU;
+    traces."""
+    from margipose_tpu_torch.checkpoint import save_model
+    from margipose_tpu_torch.models import Default_Chatterbox_Desc
+
+    model = chatterbox('cuda')
+    ckpt = os.path.join(WORK, 'chatterbox-random.pth')
+    save_model(ckpt, model, Default_Chatterbox_Desc)
+    by_path = {'chatterbox_eval': eval_bin_phase('chatterbox eval', ckpt, 'float32', 'float32'),
+               'chatterbox_eval_bf16': eval_bin_phase('chatterbox bf16 eval', ckpt, 'bfloat16',
+                                                      'uint8')}
+    trace_phase(model, 'float32', 'chatterbox trace')
+    trace_phase(model, 'bfloat16', 'chatterbox bf16 trace')
+    parity_phase(model, 'chatterbox parity')
+    by_path['chatterbox_train'], _, _ = train_bin_phase(
+        'chatterbox train', ['chatterbox_model', 'synthetic', "precision='float32'",
+                             "ship='float32'"], CHATTERBOX_STEPS, 'chatterbox')
+    train_trace_phase(model, 'float32', 'chatterbox train trace')
+    train_trace_phase(model, 'bfloat16', 'chatterbox bf16 train trace')
+    train_parity_phase(model, 'chatterbox train parity')
+    by_path['chatterbox_infer'] = infer_phase(model, Default_Chatterbox_Desc, 'chatterbox infer')
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card',
@@ -929,6 +1269,7 @@ def main():
         return 1
     kind, _ = device_phase()
     build_phase()
+    host_ops_phase()
     kernels = [kernel_phase(), backward_kernel_phase()]
     sweep_phase(kernels)
     torch.cuda.synchronize()
@@ -949,6 +1290,8 @@ def main():
     train_trace_phase(model, 'bfloat16', 'bf16 train trace')
     by_path['infer'] = infer_phase(model)
     by_path['serve'] = serve_phase(ckpt)
+    by_path.update(stems_phase())
+    by_path.update(chatterbox_phase())
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]

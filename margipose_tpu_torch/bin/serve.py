@@ -51,7 +51,7 @@ import numpy as np
 import PIL.Image
 import torch
 
-from margipose_tpu_torch import resolve_device
+from margipose_tpu_torch import native, resolve_device
 from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
 from margipose_tpu_torch.bin.infer_single import prefilter
 from margipose_tpu_torch.checkpoint import load_model
@@ -231,11 +231,16 @@ def letterbox_uint8(image: PIL.Image.Image, width: int, height: int) -> np.ndarr
 
     The same pixels ``infer`` sees (``bin/infer_single.infer_image``): the
     same host prefilter (``infer_single.prefilter``), then the same bilinear
-    affine resample, here PIL's on the host, whose numerics match the device
-    warp (``ops/image.affine_warp``) to uint8 rounding."""
+    affine resample, here the native host sampler (``native.warp_rgb``, the
+    JAX server's), which blends with zero past the content's edge as the
+    device warp (``ops/image.affine_warp``) does: the two agree to uint8
+    rounding on every pixel. Under ``MARGIPOSE_DISABLE_NATIVE``, PIL's warp,
+    as the JAX server's fallback."""
     src, affine = prefilter(image, width, height)
+    if native.available():
+        return native.warp_rgb(src, affine, (width, height))
     return np.array(warp_image_pil(PIL.Image.fromarray(src, 'RGB'), affine, (width, height)),
-                      np.uint8)
+                    np.uint8)
 
 
 def make_runner(ckpt_path: str, precision: str, device='cuda'):

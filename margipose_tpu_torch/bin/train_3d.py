@@ -39,7 +39,12 @@ from margipose_tpu_torch.checkpoint import load_model
 from margipose_tpu_torch.config import Experiment
 from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
-from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model, data_specs_for_desc
+from margipose_tpu_torch.models import (
+    Default_Chatterbox_Desc,
+    Default_MargiPose_Desc,
+    create_model,
+    data_specs_for_desc,
+)
 from margipose_tpu_torch.parallel.precision import resolve_dtype
 from margipose_tpu_torch.train import checkpoint as ckpt
 from margipose_tpu_torch.train.helpers import (
@@ -49,6 +54,7 @@ from margipose_tpu_torch.train.helpers import (
     visualise_predictions,
 )
 from margipose_tpu_torch.train.meters import make_train_reporter, timer
+from margipose_tpu_torch.train.pretrained import load_pretrained_stem
 from margipose_tpu_torch.train.schedules import make_optimiser, schedule_values
 from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
 from margipose_tpu_torch.utils import init_algorithms, seed_all
@@ -57,6 +63,7 @@ ex = Experiment()
 
 # Model presets (reference: src/margipose/bin/train_3d.py:230-231)
 ex.add_named_config('margipose_model', model_desc=Default_MargiPose_Desc)
+ex.add_named_config('chatterbox_model', model_desc=Default_Chatterbox_Desc)
 
 # Optimiser presets (reference: src/margipose/bin/train_3d.py:234-239)
 ex.add_named_config('rmsprop', optim_algorithm='rmsprop', epochs=150, lr=2.5e-3,
@@ -89,7 +96,9 @@ ex.add_config(
     quick=False,
     experiment_id=None,
     weights=None,             # warm-start model weights only (reference semantics)
-    pretrained_stem=None,     # not ported yet (see NOT_PORTED)
+    pretrained_stem=None,     # ImageNet backbone .pth for the in_cnn stem
+                              # (pretrainedmodels inceptionv4 / torchvision
+                              # resnet18/34/50 format); fresh runs only
     resume=None,              # checkpoint dir: restore the FULL train state
                               # (weights, optimiser, step, epoch) and continue
     deterministic=False,      # cuDNN deterministic algorithms (utils.init_algorithms)
@@ -123,7 +132,6 @@ ex.add_config(
 NOT_PORTED = [
     ('device_aug', lambda v: not v, 'section 1, on-device augmentation'),
     ('device_aug_canvas', lambda v: not v, 'section 1, on-device augmentation'),
-    ('pretrained_stem', lambda v: v is None, 'section 1, the ResNet stems and pretrained stems'),
     ('preserve_root_joint_at_univ_scale', lambda v: not v, 'section 1, periphery (real datasets)'),
     ('train_datasets', lambda v: len(v) == 1, 'section 1, periphery (mixed datasets)'),
     ('val_datasets', lambda v: len(v) <= 1, 'section 1, periphery (mixed datasets)'),
@@ -197,6 +205,12 @@ def run_training(cfg: dict, device='cuda') -> dict:
     model = create_model(model_desc, generator=torch.Generator().manual_seed(cfg['seed']))
     if init_weights is not None:
         model.load_state_dict(init_weights, strict=True)
+    elif cfg['pretrained_stem'] and cfg['resume'] is None:
+        # as the JAX bin: the settings' feature extractor, inceptionv4 where
+        # there is none (Chatterbox), whose blocks then match no key and raise
+        feature_extractor = model_desc['settings'].get('feature_extractor', 'inceptionv4')
+        load_pretrained_stem(model, cfg['pretrained_stem'], feature_extractor)
+        print(f"initialised {feature_extractor} stem from {cfg['pretrained_stem']}")
     model.to(device)
     print(json.dumps(model_desc, sort_keys=True, indent=2))
 

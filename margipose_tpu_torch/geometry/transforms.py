@@ -14,8 +14,9 @@ around a single composed affine:
     is the hflip joint relabelling (left<->right), which is exactly
     invertible (``untransform``).
   * The image is resampled once (bilinear) with the composed affine, on the
-    host via PIL. (The JAX package's fused native warp and on-device warp
-    are not ported yet; this copy keeps only the PIL path.)
+    host by the port's native host ops (``margipose_tpu_torch.native``, the
+    JAX package's library, copied) or, under ``MARGIPOSE_DISABLE_NATIVE``,
+    by PIL. (The JAX package's on-device augmentation is not ported yet.)
 
 This factoring is mathematically equivalent to the reference's staged
 camera/point transforms: the normalised targets, the transformed camera's
@@ -155,11 +156,30 @@ class TransformerContext:
             h = self.opts.get("hue", 0.0)
             # ``image`` may be a PIL RGB image or an HWC uint8 array (the
             # compositing pipeline stays in numpy; see data/mpi_inf_3dhp.py).
-            if isinstance(image, np.ndarray):
-                image = PIL.Image.fromarray(image, "RGB")
-            new_image = warp_image_pil(image, self.affine, out_size)
-            new_image = adjust_colour_pil(
-                new_image, brightness=b, contrast=c, saturation=s, hue=h)
+            is_array = isinstance(image, np.ndarray)
+            if is_array or image.mode == "RGB":
+                # Fused native warp+colour pass (one C++ loop instead of a
+                # PIL transform + three enhance passes), where the JAX
+                # package takes it. It computes in ONE float32 loop with a
+                # single final uint8 round; PIL quantises to uint8 after the
+                # warp and after each enhance pass, so the two differ by a
+                # few uint8 LSBs on augmented pixels. The library raises if
+                # it cannot be built; MARGIPOSE_DISABLE_NATIVE selects PIL.
+                from margipose_tpu_torch import native
+
+                if native.available():
+                    arr = native.warp_colour_norm(
+                        image if is_array else np.asarray(image),
+                        self.affine, out_size,
+                        brightness=b, contrast=c, saturation=s, hue=h)
+                    new_image = PIL.Image.fromarray(
+                        (arr * 255.0 + 0.5).astype(np.uint8), "RGB")
+            if new_image is None:
+                if is_array:
+                    image = PIL.Image.fromarray(image, "RGB")
+                new_image = warp_image_pil(image, self.affine, out_size)
+                new_image = adjust_colour_pil(
+                    new_image, brightness=b, contrast=c, saturation=s, hue=h)
         return new_camera, new_image, new_points
 
     def untransform(self, points: np.ndarray) -> np.ndarray:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from margipose_tpu_torch.data.specs import DataSpecs, ImageSpecs, JointsSpecs
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc
+from margipose_tpu_torch.models.chatterbox import ChatterboxModel, Default_Chatterbox_Desc
 from margipose_tpu_torch.models.margipose import Default_MargiPose_Desc, MargiPoseModel
 
 
@@ -64,16 +65,18 @@ def _create_margipose(model_desc: dict, generator=None) -> MargiPoseModel:
     )
 
 
-def _not_yet_ported(model_desc: dict, generator=None):
-    raise NotImplementedError(
-        f"{model_desc['type']} v{model_desc['version']} is not yet ported to "
-        "margipose_tpu_torch")
+def _create_chatterbox(model_desc: dict, generator=None) -> ChatterboxModel:
+    return ChatterboxModel(
+        n_joints=CanonicalSkeletonDesc.n_joints,
+        pixelwise_loss=model_desc["settings"].get("pixelwise_loss", "jsd"),
+        generator=generator,
+    )
 
 
 # (type, caret range, constructor)
 MODEL_FACTORIES = [
     ("margipose", "^6.0.0", _create_margipose),
-    ("chatterbox", "^1.3.0", _not_yet_ported),
+    ("chatterbox", "^1.3.0", _create_chatterbox),
 ]
 
 
@@ -86,6 +89,7 @@ def create_model(model_desc: dict, generator=None):
 
 
 __all__ = [
+    "Default_Chatterbox_Desc",
     "Default_MargiPose_Desc",
     "MODEL_FACTORIES",
     "create_model",

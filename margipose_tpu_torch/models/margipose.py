@@ -17,6 +17,7 @@ from torch import nn
 
 from margipose_tpu_torch.models.inception import inception_in_cnn
 from margipose_tpu_torch.models.layers import ResidualBlock, init_parameters
+from margipose_tpu_torch.models.resnet import RESNET_LAYERS, ResNetStem
 from margipose_tpu_torch.ops.dsnt import average_loss, dsnt, euclidean_losses, flat_softmax
 from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_grouped
 
@@ -105,12 +106,14 @@ class MargiPoseModelInner(nn.Module):
     def __init__(self, n_joints: int, n_stages: int, axis_permutation: bool,
                  feature_extractor: str):
         super().__init__()
-        if feature_extractor != 'inceptionv4':
-            raise NotImplementedError(
-                f'feature extractor {feature_extractor!r} is not yet ported '
-                '(the port has the inceptionv4 stem only)')
         self.n_stages = n_stages
-        self.in_cnn = inception_in_cnn()
+        if feature_extractor == 'inceptionv4':
+            self.in_cnn = inception_in_cnn()
+        elif feature_extractor in RESNET_LAYERS:
+            self.in_cnn = ResNetStem(feature_extractor)
+        else:
+            raise ValueError(
+                'unsupported image feature extractor model name: ' + feature_extractor)
         spaces = PLANES if axis_permutation else ('xy', 'xy', 'xy')
         for plane, space in zip(PLANES, spaces):
             setattr(self, f'{plane}_hm_cnns', nn.ModuleList(

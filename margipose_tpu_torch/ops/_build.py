@@ -1,17 +1,24 @@
-"""Build and load the port's CUDA kernels (nvcc + ctypes).
+"""Build and load the port's native libraries (nvcc or g++, then ctypes).
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled, at first
-use, into ``build/margipose_tpu_torch/lib<name>-<hash>.so`` at the root of
-the checkout (git-ignored). The hash is of the source, so an edited kernel is
-rebuilt and a stale library is never loaded. Nothing is built or loaded when
-this module is imported: the CPU tests import every module.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code)
+exposes a plain C interface and is compiled, at first use, into
+``build/margipose_tpu_torch/lib<name>-<hash>.so`` at the root of the checkout
+(git-ignored): ``.cu`` by nvcc for ``sm_90a``, ``.cpp`` by g++ with the JAX
+package's host-ops flags. The hash is of the source, the flags, the
+compiler's version banner and the host (name, machine, libc), so an edited
+source is rebuilt, and a library built by another compiler or on another
+machine (a ``build/`` copied along with a checkout) is never loaded. Nothing
+is built or loaded when this module is imported: the CPU tests import every
+module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -22,6 +29,9 @@ CSRC = path.join(_PKG, "csrc")
 BUILD_DIR = path.join(path.dirname(_PKG), "build", "margipose_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# the flags of the JAX package's host-ops build (native/build.sh), so that
+# both libraries give the same bits
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -36,28 +46,59 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from csrc/ at first use")
 
 
+def _gxx() -> str:
+    cand = shutil.which("g++")
+    if cand is None:
+        raise RuntimeError("g++ not found on PATH; the port's host ops are built from "
+                           "csrc/host_ops.cpp at first use (MARGIPOSE_DISABLE_NATIVE=1 "
+                           "selects the PIL path)")
+    return cand
+
+
+def _source(name: str) -> tuple[str, list[str]]:
+    """(source path, compiler flags) of ``name``: its ``.cu`` or ``.cpp``."""
+    cu = path.join(CSRC, f"{name}.cu")
+    if path.isfile(cu):
+        return cu, NVCC_FLAGS
+    return path.join(CSRC, f"{name}.cpp"), GXX_FLAGS
+
+
+def _compiler(src: str) -> str:
+    return _nvcc() if src.endswith(".cu") else _gxx()
+
+
+@functools.lru_cache(maxsize=None)
+def _toolchain(compiler: str) -> str:
+    """The compiler's version banner and the host it runs on."""
+    banner = subprocess.run([compiler, "--version"], capture_output=True, text=True,
+                            check=True).stdout
+    return "\n".join([banner, platform.node(), platform.machine(), *platform.libc_ver()])
+
+
 def library_path(name: str) -> str:
-    with open(path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    src, flags = _source(name)
+    with open(src, "rb") as f:
+        key = f.read() + " ".join(flags).encode() + _toolchain(_compiler(src)).encode()
+    return path.join(BUILD_DIR, f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns
+    """Start the compiler for ``name`` unless its library exists; returns
     (process or None, temp output, final output)."""
     out = library_path(name)
     if path.isfile(out):
         return None, None, out
+    src, flags = _source(name)
+    compiler = _compiler(src)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, path.join(CSRC, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([compiler, *flags, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
 def build(names) -> None:
-    """Build the named kernels' libraries, one nvcc per source, all started
+    """Build the named libraries, one compiler per source, all started
     together. Raises with the compiler's output if any build fails."""
     started = [(n, *_start_build(n)) for n in names]
     errors = []
@@ -66,19 +107,23 @@ def build(names) -> None:
             continue
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"{path.basename(_source(name)[0])} failed to build:\n{log}")
             continue
-        os.replace(tmp, out)  # atomic: a half-written .so is never loaded
+        # atomic: a half-written .so is never loaded, and processes that race
+        # on one build (forked loader workers) each rename a whole library
+        os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
 
 
 def kernel_sources() -> list[str]:
+    """The CUDA kernels' names (``csrc/*.cu``)."""
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built first if
+    needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

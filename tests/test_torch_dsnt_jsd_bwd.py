@@ -191,6 +191,7 @@ def test_cuda_backward_matches_plain():
 @pytest.mark.parametrize('g,b,j,h,w,sigma,spoil', [
     (12, 32, 17, 32, 32, 1.0, False),  # the flagship's batch: 4 stages x 3 planes
     (12, 10, 17, 32, 32, 1.0, False),  # the multicrop eval's 10 crops of one example
+    (3, 32, 17, 32, 32, 1.0, False),   # Chatterbox's batch: 1 stage x 3 planes
     (3, 1, 13, 16, 24, 2.0, False),    # generic layout
     (2, 1, 13, 7, 9, 1.5, False),      # H*W % 4 != 0
     (2, 2, 17, 32, 32, 1.0, True),     # 32x32 rows outside [0, 2): logf's own path

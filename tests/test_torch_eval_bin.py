@@ -5,7 +5,7 @@ MargiPose to the reference ``.pth`` format. The JAX bin
 (``margipose_tpu.bin.eval_3d.main``) and the port's
 (``margipose_tpu_torch.bin.eval_3d.main --device cpu``) both evaluate it on
 ``synthetic-4`` at batch 2, and with ``--multicrop``; their overall metrics
-and mean loss must agree. ``--ship uint8`` and ``--precision bfloat16`` are
+and mean loss must agree. So must a Chatterbox checkpoint's. ``--ship uint8`` and ``--precision bfloat16`` are
 held to the port's own float32 run.
 The port's drain window is also pinned as tests/test_eval_drain.py pins the
 JAX one: a scheduling detail that never changes the predictions.
@@ -34,11 +34,8 @@ def checkpoint(tmp_path_factory):
 
 
 def _run_jax_eval(args, monkeypatch):
-    """The JAX eval bin on ``args``: (per-example table, stats)."""
-    import margipose_tpu.native as native
-
-    # the port has the PIL warp only; hold the JAX side to the same pixels
-    monkeypatch.setattr(native, 'available', lambda: False)
+    """The JAX eval bin on ``args``: (per-example table, stats). Both bins'
+    crops come from their native host ops, the same library."""
     captured = {}
     run = jax_eval_3d.run_evaluation_3d
 
@@ -84,6 +81,23 @@ def test_eval_bin_matches_jax(checkpoint, port_float32, monkeypatch):
     _assert_tables_agree(eval_3d.overall_metrics(rows), df[list(METRICS)].mean())
     np.testing.assert_allclose(stats['mean_loss'], jax_stats['mean_loss'], rtol=1e-4)
     assert stats['batches'] == 2
+
+
+def test_chatterbox_checkpoint_matches_jax(tmp_path, monkeypatch):
+    """A Chatterbox checkpoint (full width, 256 px: the only size it runs
+    at) through both bins on synthetic-2 at batch 2."""
+    from test_torch_chatterbox import DESC, jax_chatterbox
+
+    _, variables, _ = jax_chatterbox(seed=5)
+    path = str(tmp_path / 'chatterbox.pth')
+    state = {k: torch.from_numpy(np.asarray(v)) for k, v in export_state_dict(variables).items()}
+    torch.save({'state_dict': state, 'model_desc': DESC}, path)
+    args = ['--model', path, '--dataset', 'synthetic-2', '--batch-size', '2']
+    df, jax_stats = _run_jax_eval(args, monkeypatch)
+    rows, stats = eval_3d.main(args + ['--device', 'cpu'])
+    assert len(rows['mpjpe']) == len(df) == 2 and stats['batches'] == 1
+    _assert_tables_agree(eval_3d.overall_metrics(rows), df[list(METRICS)].mean())
+    np.testing.assert_allclose(stats['mean_loss'], jax_stats['mean_loss'], rtol=1e-4)
 
 
 def test_multicrop_matches_jax(checkpoint, monkeypatch, capsys):

@@ -4,8 +4,8 @@ One small checkpoint (inceptionv4, 2 stages, 64 px) is exported from a JAX
 MargiPose to the reference ``.pth`` format, which both packages load.
 ``infer_image`` and the HTTP server of each package then see the same image;
 their coordinates must agree to atol 1e-4 in float32 (float32 sums in
-another order, through a 64 px model). The JAX side's host warp is held to
-PIL's, the one the port has, so both see the same pixels.
+another order, through a 64 px model). Both servers letterbox with their
+native host sampler, the same library, so both see the same pixels.
 """
 
 import concurrent.futures
@@ -26,7 +26,6 @@ import torch
 
 import margipose_tpu.bin.infer_single as jax_infer
 import margipose_tpu.bin.serve as jax_serve
-import margipose_tpu.native as native
 from margipose_tpu.ops.image import affine_warp as jax_affine_warp
 from margipose_tpu.train.torch_import import export_state_dict
 from margipose_tpu_torch.bin import infer_single, serve
@@ -48,11 +47,6 @@ def exported(tmp_path_factory):
     state = {k: torch.from_numpy(np.asarray(v)) for k, v in export_state_dict(variables).items()}
     torch.save({'state_dict': state, 'model_desc': desc}, path)
     return path, desc, jax_model, variables
-
-
-@pytest.fixture
-def pil_warp_only(monkeypatch):
-    monkeypatch.setattr(native, 'available', lambda: False)
 
 
 def _png(seed, size=(96, 80)):
@@ -115,47 +109,30 @@ def test_infer_cli_writes_a_png(exported, tmp_path, capsys):
     assert infer_single.parse_args(['--model', 'm', '--image', 'i']).device == 'cuda'
 
 
-def test_letterbox_matches_jax_and_affine_warp(monkeypatch):
-    """The server's host letterbox is the JAX one's PIL branch, pixel for
-    pixel. Against infer's pixels (the prefilter and the device warp, both
-    packages') and the JAX server's native warp it agrees to uint8 rounding
-    wherever a pixel's bilinear footprint lies in the source. At the
-    content's far edge PIL's rule differs: it clamps a footprint that
-    reaches past the last source row (or column) and fills a pixel whose
-    sample point lies past it, where the device warp blends with zero. That
-    edge is one row (or column) of content and one past it."""
+def test_letterbox_matches_jax_and_affine_warp():
+    """The server's host letterbox is the JAX server's: the native host
+    sampler after the same prefilter, bit for bit. Against infer's pixels
+    (the prefilter and the device warp, both packages') it agrees to uint8
+    rounding on every pixel, the content's far edge included: the native
+    sampler, like the device warp, blends with zero where a pixel's bilinear
+    footprint reaches past the last source row or column."""
     rng = np.random.RandomState(0)
     w = h = 64
     for iw, ih in ((160, 96), (48, 40), (70, 150)):
         image = PIL.Image.fromarray(rng.randint(0, 256, (ih, iw, 3), dtype=np.uint8), 'RGB')
         got = serve.letterbox_uint8(image, w, h)
         assert got.shape == (h, w, 3) and got.dtype == np.uint8
-        with monkeypatch.context() as m:
-            m.setattr(native, 'available', lambda: False)
-            np.testing.assert_array_equal(got, jax_serve.letterbox_uint8(image, w, h))
+        np.testing.assert_array_equal(got, jax_serve.letterbox_uint8(image, w, h))
 
-        ref = image.convert('RGB')
-        reduce_factor = int(1.0 / min(w / ref.width, h / ref.height, 1.0))
-        if reduce_factor > 1:
-            ref = ref.reduce(reduce_factor)
-        src = np.asarray(ref, np.float32)[None] / 255.0
-        scale = min(w / src.shape[2], h / src.shape[1], 1.0)
-        affine = np.diag([scale, scale, 1.0]).astype(np.float32)[None]
-        warped = affine_warp(torch.from_numpy(src), torch.from_numpy(affine), h, w)[0].numpy()
-        jax_warped = np.asarray(jax_affine_warp(jnp.asarray(src), jnp.asarray(affine), h, w))[0]
-
-        def rule(size, n):  # per output row or column: PIL samples it; footprint inside
-            sample = (np.arange(size) + 0.5) / scale
-            return sample < n, np.floor(sample - 0.5) + 1 < n
-
-        (pil_y, full_y), (pil_x, full_x) = rule(h, src.shape[1]), rule(w, src.shape[2])
-        assert (got[~pil_y] == 0).all() and (got[:, ~pil_x] == 0).all()
-        full = full_y[:, None] & full_x[None, :]
-        for ref_pixels in (warped, jax_warped, jax_serve.letterbox_uint8(image, w, h) / 255.0):
-            np.testing.assert_allclose(got[full] / np.float32(255.0), ref_pixels[full],
+        src, affine = infer_single.prefilter(image, w, h)
+        src = src.astype(np.float32)[None] / 255.0
+        warped = affine_warp(torch.from_numpy(src), torch.from_numpy(affine[None]), h, w)[0]
+        jax_warped = np.asarray(jax_affine_warp(jnp.asarray(src), jnp.asarray(affine[None]),
+                                                h, w))[0]
+        for ref_pixels in (warped.numpy(), jax_warped):
+            np.testing.assert_allclose(got / np.float32(255.0), ref_pixels, rtol=0,
                                        atol=2.0 / 255.0)
-        assert (pil_y & ~full_y).sum() <= 1 and (pil_x & ~full_x).sum() <= 1
-        assert (warped.max(-1)[~full_y].any(-1)).sum() <= 2
+        assert (got[-1] == 0).all() or (got[:, -1] == 0).all()  # the black canvas
 
 
 def test_microbatcher_failure_paths():
@@ -311,7 +288,7 @@ def test_serve_http(exported):
         running.close()
 
 
-def test_served_coords_match_jax_server(exported, pil_warp_only):
+def test_served_coords_match_jax_server(exported):
     path = exported[0]
     body = _png(3, size=(120, 90))
     replies = []

@@ -195,7 +195,6 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch
     'device_aug_canvas=64',
     'preserve_root_joint_at_univ_scale=True',
     'device_aug=True',
-    "pretrained_stem='inceptionv4.pth'",
     "train_datasets=['synthetic-16', 'synthetic-8']",
 ])
 def test_keys_left_out_raise(tmp_path, override):
@@ -237,3 +236,4 @@ def test_unknown_precision_or_ship_raises(tmp_path, override):
     with pytest.raises(ValueError):
         train_3d.main(_argv(str(tmp_path), override))
     assert not os.listdir(tmp_path)
+

@@ -105,9 +105,10 @@ def test_train_step_matches_jax(calibrated, route, monkeypatch):
     _assert_state_matches(state.model.state_dict(), expected, state_dict_from_jax(variables))
 
 
-def _assert_state_matches(got, expected, initial):
+def _assert_state_matches(got, expected, initial, update_share=0.02):
     """The port's state_dict after a step against the JAX step's, with the
-    tolerances of the module docstring."""
+    tolerances of the module docstring (each parameter within 1e-4 +
+    ``update_share`` of the largest update the JAX step made to it)."""
     assert set(got) == set(expected)
     for key, want in expected.items():
         if key.endswith('num_batches_tracked'):
@@ -116,7 +117,8 @@ def _assert_state_matches(got, expected, initial):
             assert_allclose(got[key].numpy(), want.numpy(), rtol=1e-4, atol=1e-5, err_msg=key)
         else:
             update = np.abs(want.numpy() - initial[key].numpy()).max()
-            assert_allclose(got[key].numpy(), want.numpy(), rtol=0, atol=1e-4 + 0.02 * update,
+            assert_allclose(got[key].numpy(), want.numpy(), rtol=0,
+                            atol=1e-4 + update_share * update,
                             err_msg=key)
 
 

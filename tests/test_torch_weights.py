@@ -26,8 +26,9 @@ def small_desc(n_stages=2, axis_permutation=True, input_size=64):
                          'input_size': input_size}}
 
 
-def jax_margipose(desc, seed=0, calibrate=True):
-    """A randomly initialised JAX MargiPose as host numpy variables.
+def jax_margipose(desc, seed=0, calibrate=True, variables=None):
+    """A randomly initialised JAX MargiPose as host numpy variables
+    (``variables``, a tree of the model's shapes, in place of JAX's init).
 
     With ``calibrate``, the BN running stats are those of one train-mode pass
     on a random batch, then perturbed at random, and the last residual block
@@ -38,8 +39,9 @@ def jax_margipose(desc, seed=0, calibrate=True):
     size = desc['settings'].get('input_size', 256)
     model = create_jax_model(desc)
     rng = np.random.RandomState(seed)
-    variables = jax.tree.map(np.asarray, jax.jit(model.init)(
-        jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3))))
+    if variables is None:
+        variables = jax.tree.map(np.asarray, jax.jit(model.init)(
+            jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3))))
     if not calibrate:
         return model, variables
     stats = jax.tree.map(np.zeros_like, variables['batch_stats'])
@@ -64,6 +66,35 @@ def jax_margipose(desc, seed=0, calibrate=True):
                 bn['bias'] = (bn['bias'] * 0.2 + 0.01 * rng.randn(*bn['bias'].shape)
                               ).astype(np.float32)
     return model, {'params': params, 'batch_stats': stats}
+
+
+def port_init_as_jax(desc, seed=0, module=None, shape=None):
+    """The port's seeded initialisation of ``desc``'s model (or of
+    ``module``, a JAX module with its port counterpart, taking NHWC inputs
+    of ``shape``) as a JAX variables tree, through the JAX package's
+    importer: no JAX init to compile."""
+    from margipose_tpu.train.torch_import import convert_state_dict
+
+    if module is None:
+        size = desc['settings'].get('input_size', 256)
+        shape = (1, size, size, 3)
+        module = (create_jax_model(desc),
+                  create_model(desc, generator=torch.Generator().manual_seed(seed)))
+    jax_module, port_module = module
+    template = jax.eval_shape(jax_module.init, jax.random.PRNGKey(0), jnp.zeros(shape))
+    return convert_state_dict(template, port_module.state_dict())
+
+
+@pytest.fixture
+def two_torch_threads():
+    """Two intra-op threads for torch during a test, then the number it had.
+    The tier-1 command runs six test workers on the machine's cores; a file
+    of full-width models keeps to two threads so that the workers do not
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')
