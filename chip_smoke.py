@@ -14,6 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                    generic layout (16x24, H*W % 4 != 0, unaligned pointers),
                    with times and bounds; the head's autograd through the
                    CUDA backward against autograd through the plain version;
+                   and (printed under [datasets]) both kernels at the main
+                   shape on the mixed 2D/3D recipe's rows: target means in
+                   [-3, 3], a third of the zy/xz rows with a zero upstream
+                   gradient;
      sweep         both kernels at 13, 544 and 6,528 rows of 32x32: a
                    launch's fixed cost against its cost per row;
   4. main          the flagship eval path through its entry point
@@ -34,7 +38,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   9. train parity  one train step at batch 2 on the card against the CPU,
                    and two steps on the card with a planted fault (one
                    example's loss dropped, one batch norm's gradients
-                   zeroed) that its rule must reject;
+                   zeroed) that its rule must reject; a third fault, one
+                   joint of one example dropped, read against that rule and
+                   a joint-row rule on the last convolutions, one of which
+                   must reject it;
  10. bf16 eval     bin.eval_3d at batch 32 with --precision bfloat16 --ship
                    uint8 (the forward kernel once a batch), bf16 against
                    float32 coordinates on one batch, and a profiled bf16
@@ -71,7 +78,21 @@ Phases, each printing its own lines; any failure exits non-zero:
                    chatterbox_model preset, 3 steps at batch 32 and a
                    validation batch (both kernels once a step); traced train
                    steps in float32 and bf16; one train step at batch 2 card
-                   against CPU, and its planted faults; bin.infer_single.infer_image card against CPU.
+                   against CPU, and its planted faults; bin.infer_single.infer_image card against CPU;
+ 18. datasets      one flagship train step at batch 2 on a mixed 2D/3D batch
+                   (a 2D example with half its joints masked and targets off
+                   the map), card against CPU; before phase 4 (printed as
+                   [cudnn policy]), a forward + loss at batch 32 under each
+                   cuDNN policy in turn (heuristics; deterministic, as eval
+                   and infer set it; timed search; heuristics after the
+                   search). Where h5py is
+                   installed, on fake corpora under build/chip_smoke/:
+                   bin.eval_3d with no --dataset (mpi3d-test, 48 frames of
+                   768 px, batch 32, float32), its tables, device ms and the
+                   host's share of the window; --multicrop on 4 examples;
+                   h36m-test at batch 8; bin.train_3d with the mpi3d preset
+                   (mpi3d-trainval + mpii-trainval, augmented, 3 steps of
+                   32). Without h5py one line says these did not run.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
@@ -116,6 +137,12 @@ KERNEL_SHAPES = [  # (G groups, B, J, H, W, sigma, pointer offset in floats)
     (2, 1, 13, 7, 9, 1.5, 0),      # the generic layout: H*W % 4 != 0
     (2, 2, 17, 32, 32, 1.0, 1),    # the generic layout: 32x32 off 16-byte alignment
 ]
+# the mixed 2D/3D recipe's rows at the main paths' shape: target means off the
+# map (MPII joints that leave the crop, rotation and shifts), and zero
+# upstream gradients in the zy/xz groups for the 2D examples
+MIXED_RECIPE_SHAPE = (12, 32, 17, 32, 32, 1.0, 0)
+MIXED_RECIPE_SPREAD = 3.0
+DROPPED_JOINT = 7          # the joint a planted train fault drops from one example
 MAIN_SHAPE = (12, 32, 32, 32, 0)  # the main paths' (G, B, H, W, offset): 17 joints
 CHATTERBOX_SHAPE = (3, 32, 32, 32, 0)
 SWEEP_ROWS = [(1, 1, 13), (1, 32, 17), (12, 32, 17)]  # (G, B, J): 13, 544, 6528 rows
@@ -125,6 +152,7 @@ MULTICROP_EXAMPLES = 4     # the multicrop eval's examples, 10 crops each
 STEMS = ('resnet18', 'resnet34', 'resnet50')
 STEM_TRAIN_STEPS = 2       # the resnet34 stem's train path at batch 32
 CHATTERBOX_STEPS = 3       # the Chatterbox train path at batch 32
+MPI3D_TRAIN_STEPS = 3      # the mpi3d preset's train path at batch 32
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -188,10 +216,10 @@ def build_phase():
     phase('build', f'{names} built in {time.perf_counter() - t0:.2f} s into {_build.BUILD_DIR}')
 
 
-def dsnt_jsd_inputs(g, b, j, h, w, offset, seed):
+def dsnt_jsd_inputs(g, b, j, h, w, offset, seed, spread=0.8):
     """G heatmap groups on the card, each ``offset`` floats into its storage,
-    and their targets, repeating over three planes as the model's stages
-    share them."""
+    and their targets in [-spread, spread], repeating over three planes as
+    the model's stages share them."""
     from margipose_tpu_torch.ops.dsnt import flat_softmax
 
     gen = torch.Generator().manual_seed(seed)
@@ -201,8 +229,21 @@ def dsnt_jsd_inputs(g, b, j, h, w, offset, seed):
         flat = torch.zeros(p.numel() + offset, device='cuda')
         flat[offset:] = p.reshape(-1).cuda()
         hms.append(flat[offset:].view(b, j, h, w))
-    planes = [(torch.rand(b, j, 2, generator=gen) * 1.6 - 0.8).cuda() for _ in range(3)]
+    planes = [((torch.rand(b, j, 2, generator=gen) * 2 - 1) * spread).cuda() for _ in range(3)]
     return hms, [planes[i % 3] for i in range(g)]
+
+
+def mixed_recipe_grad(g, b, j, generator):
+    """An upstream gradient [G, B*J, 4] as the mixed 2D/3D recipe gives it:
+    in the zy/xz groups (i % 3 != 0) the rows of every third example (an
+    MPII example, whose zy/xz losses are dropped) are exactly zero. Returns
+    (grad, the rows that are zero in those groups)."""
+    grad = torch.randn(g, b * j, 4, generator=generator)
+    two_d = (torch.arange(b * j) // j) % 3 == 1
+    for i in range(g):
+        if i % 3:
+            grad[i, two_d] = 0
+    return grad.cuda(), two_d.cuda()
 
 
 def bound(bytes_moved, ops):
@@ -288,7 +329,23 @@ def kernel_phase():
         if (g, b, h, w, offset) == CHATTERBOX_SHAPE:
             report['chatterbox'] = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
-    report['max_abs_err'] = worst
+    g, b, j, h, w, sigma, offset = MIXED_RECIPE_SHAPE
+    hms, mus = dsnt_jsd_inputs(g, b, j, h, w, offset, seed=61, spread=MIXED_RECIPE_SPREAD)
+    rows = dsnt_jsd_fwd(hms, mus, sigma)
+    expected = dsnt_jsd_fwd_plain(hms, mus, sigma)
+    torch.cuda.synchronize()
+    err = (rows - expected).abs().max().item()
+    finite = bool(torch.isfinite(rows).all())
+    phase('datasets', f'dsnt_jsd_fwd on the mixed 2D/3D recipe\'s rows '
+                      f'({shape_name(g, b, j, h, w, sigma, offset)}, target means in '
+                      f'[-{MIXED_RECIPE_SPREAD}, {MIXED_RECIPE_SPREAD}]): max abs err {err:.3g} '
+                      f'(atol {ATOL_KERNEL}), finite {finite}; kernel '
+                      f'{graph_ms(lambda: dsnt_jsd_fwd(hms, mus, sigma)) * 1e3:.2f} us in a CUDA '
+                      f'graph')
+    if not (err <= ATOL_KERNEL and finite):
+        raise AssertionError('dsnt_jsd_fwd disagrees with its plain version on off-map targets')
+    report['mixed_rows_max_abs_err'] = err
+    report['max_abs_err'] = max(worst, err)
     return report
 
 
@@ -357,7 +414,29 @@ def backward_kernel_phase():
             report['chatterbox'] = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=bound_by,
                                         max_abs_err=max(err, autograd_err))
-    report['max_abs_err'] = worst
+    g, b, j, h, w, sigma, offset = MIXED_RECIPE_SHAPE
+    hms, mus = dsnt_jsd_inputs(g, b, j, h, w, offset, seed=62, spread=MIXED_RECIPE_SPREAD)
+    grad, two_d = mixed_recipe_grad(g, b, j, torch.Generator().manual_seed(63))
+    dp = dsnt_jsd_bwd(hms, mus, grad, sigma)
+    expected = dsnt_jsd_bwd_plain(hms, mus, grad, sigma)
+    torch.cuda.synchronize()
+    err = (dp - expected).abs().max().item()
+    finite = bool(torch.isfinite(dp).all())
+    zero_rows = all(not torch.count_nonzero(dp[i].reshape(b * j, -1)[two_d]).item()
+                    for i in range(g) if i % 3)
+    phase('datasets', f'dsnt_jsd_bwd on the mixed 2D/3D recipe\'s rows '
+                      f'({shape_name(g, b, j, h, w, sigma, offset)}, target means in '
+                      f'[-{MIXED_RECIPE_SPREAD}, {MIXED_RECIPE_SPREAD}], '
+                      f'{int(two_d.sum())} rows of each zy/xz group with a zero upstream '
+                      f'gradient): max abs err {err:.3g} (atol {ATOL_GRAD}), finite {finite}, '
+                      f'those rows\' gradients exactly zero {zero_rows}; kernel '
+                      f'{graph_ms(lambda: dsnt_jsd_bwd(hms, mus, grad, sigma)) * 1e3:.2f} us in '
+                      f'a CUDA graph')
+    if not (err <= ATOL_GRAD and finite and zero_rows):
+        raise AssertionError('dsnt_jsd_bwd disagrees with its plain version on the mixed '
+                             'recipe\'s rows')
+    report['mixed_rows_max_abs_err'] = err
+    report['max_abs_err'] = max(worst, err)
     return report
 
 
@@ -711,6 +790,26 @@ def worst_update_share(got, want, initial):
         for k in want if 'running_' not in k and not k.endswith('num_batches_tracked'))
 
 
+def worst_row_share(got, want, initial, n_joints=17):
+    """The second rule, for faults confined to a few elements: each joint's
+    row (the output channel) of every convolution weight with one output
+    channel per joint (the columns' last residual blocks, Chatterbox's last
+    convolutions) within 10% of the update ``want`` made to that row in L2,
+    plus 1e-6 RMS. Batch norm's per-joint scales and shifts are single
+    elements, which the L2 rule's note says rounding moves too far to hold
+    one by one. Returns (share, tensor, row)."""
+    shares = []
+    for k in want:
+        if want[k].dim() < 4 or want[k].shape[0] != n_joints:
+            continue
+        got_r, want_r, init_r = (t[k].reshape(n_joints, -1) for t in (got, want, initial))
+        tol = 0.1 * (want_r - init_r).norm(dim=1) + 1e-6 * want_r.shape[1] ** 0.5
+        share = (got_r - want_r).norm(dim=1) / tol
+        row = int(share.argmax())
+        shares.append((share[row].item(), k, row))
+    return max(shares)
+
+
 def train_parity_phase(model, name='train parity'):
     """One train step at batch 2 from the same weights and batch on the card
     and on the CPU, float32, TF32 off. Tolerances:
@@ -725,13 +824,17 @@ def train_parity_phase(model, name='train parity'):
       BN buffers  rtol 1e-4, atol 1e-5.
     Then the rule's power: the same step on the card with a fault planted,
     one example's loss dropped or one batch norm's gradients zeroed, must
-    fail it."""
+    fail it. A fault confined to a few elements, one joint of one example
+    dropped from the loss, is read against the L2 rule and against the
+    joint-row rule (``worst_row_share``), which the sound step must pass and
+    the fault must fail (one of the two rules catches it)."""
     batch = flagship_batch(2, seed=3)
     initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
     loss_gpu, gpu = train_step_state(model, 'cuda', batch)
     loss_cpu, cpu = train_step_state(model, 'cpu', batch)
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     share = worst_update_share(gpu, cpu, initial)
+    row_share = worst_row_share(gpu, cpu, initial)
     still = [k for k in cpu if 'running_' not in k and not k.endswith('num_batches_tracked')
              and (cpu[k] - initial[k]).norm().item() <= 1e-6 * cpu[k].numel() ** 0.5]
     moved_still = max([(gpu[k] - initial[k]).norm().item() / gpu[k].numel() ** 0.5
@@ -743,6 +846,8 @@ def train_parity_phase(model, name='train parity'):
                 f'10% of its update + 1e-6 RMS ({share[1]}); {len(still)} tensors the CPU left '
                 f'still, moved on the card by {moved_still:.3g} RMS at most; worst BN buffer at '
                 f'{worst_buffer:.3g} of its tolerance')
+    phase(name, f'joint-row rule: worst joint row at {row_share[0]:.4f} of 10% of its update + '
+                f'1e-6 RMS ({row_share[1]}, row {row_share[2]})')
     dropped = {**batch, 'joint_mask': batch['joint_mask'].clone()}
     dropped['joint_mask'][0] = 0
     bns = [n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
@@ -755,10 +860,20 @@ def train_parity_phase(model, name='train parity'):
         caught = caught and fault_share[0] > 1
         phase(name, f'planted fault, {fault}: worst parameter tensor at {fault_share[0]:.4g} of '
                     f'its tolerance ({fault_share[1]})')
-    if not (loss_rel <= 1e-3 and share[0] <= 1 and worst_buffer <= 1):
+    one_joint = {**batch, 'joint_mask': batch['joint_mask'].clone()}
+    one_joint['joint_mask'][0, DROPPED_JOINT] = 0
+    state = train_step_state(model, 'cuda', one_joint)[1]
+    joint_share, joint_rows = worst_update_share(state, cpu, initial), worst_row_share(state, cpu,
+                                                                                       initial)
+    phase(name, f'planted fault confined to a few elements, joint {DROPPED_JOINT} of example 0 '
+                f'dropped from the loss: L2 rule {joint_share[0]:.4g} ({joint_share[1]}), '
+                f'{"caught" if joint_share[0] > 1 else "passed"}; joint-row rule '
+                f'{joint_rows[0]:.4g} ({joint_rows[1]}, row {joint_rows[2]}), '
+                f'{"caught" if joint_rows[0] > 1 else "passed"}')
+    if not (loss_rel <= 1e-3 and share[0] <= 1 and worst_buffer <= 1 and row_share[0] <= 1):
         raise AssertionError('a train step on the card disagrees with one on the CPU')
-    if not caught:
-        raise AssertionError('the train parity rule passed a step with a planted fault')
+    if not (caught and max(joint_share[0], joint_rows[0]) > 1):
+        raise AssertionError('the train parity rules passed a step with a planted fault')
 
 
 def statistically_close(a, b):
@@ -1262,6 +1377,237 @@ def chatterbox_phase():
     return by_path
 
 
+def mixed_batch(seed):
+    """One batch of 2 as the mixed 2D/3D recipe gives it: an MPI-INF-3DHP
+    example (valid_depth 1) and an MPII one (valid_depth 0) with half its
+    joints masked and some targets off the map."""
+    batch = flagship_batch(2, seed)
+    batch['joint_mask'] = torch.ones(2, 17)
+    batch['joint_mask'][1, ::2] = 0
+    batch['target'][1, [0, 1, 2, 7, 8], :2] = torch.tensor([2.5, -1.8])
+    batch['valid_depth'] = torch.tensor([1, 0])
+    return batch
+
+
+def mixed_train_parity_phase(model):
+    """One flagship train step at batch 2 on a mixed 2D/3D batch, card
+    against CPU, under train_parity_phase's rules."""
+    batch = mixed_batch(seed=12)
+    initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    loss_gpu, gpu = train_step_state(model, 'cuda', batch)
+    loss_cpu, cpu = train_step_state(model, 'cpu', batch)
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    share, row_share = worst_update_share(gpu, cpu, initial), worst_row_share(gpu, cpu, initial)
+    worst_buffer = max(((gpu[k] - cpu[k]).abs() / (1e-5 + 1e-4 * cpu[k].abs())).max().item()
+                       for k in cpu if 'running_' in k)
+    finite = all(torch.isfinite(v).all() for v in gpu.values()) and math.isfinite(loss_gpu)
+    phase('datasets', f'mixed 2D/3D batch of 2 (valid_depth 1 and 0, half the 2D example\'s '
+                      f'joints masked, 5 targets off the map), one train step card vs CPU: loss '
+                      f'{loss_gpu:.6f} vs {loss_cpu:.6f}, rel err {loss_rel:.3g} (rtol 1e-3); worst '
+                      f'parameter tensor at {share[0]:.4f} of 10% of its update + 1e-6 RMS '
+                      f'({share[1]}); worst joint row at {row_share[0]:.4f} ({row_share[1]}, row '
+                      f'{row_share[2]}); worst BN buffer at {worst_buffer:.3g}; finite {finite}')
+    if not (finite and loss_rel <= 1e-3 and share[0] <= 1 and row_share[0] <= 1
+            and worst_buffer <= 1):
+        raise AssertionError('a mixed 2D/3D train step on the card disagrees with the CPU\'s')
+
+
+def cudnn_policy_phase(model):
+    """Eval and infer set cuDNN's deterministic algorithms, as the JAX bins
+    do. One forward + loss at batch 32 in float32 and bf16 under each policy
+    in turn, before anything else in the process has run a timed search:
+    heuristics (the process's default, which eval and infer kept before
+    they set the policy), deterministic, timed search (the train bin's), and
+    heuristics again once the search has run (CUDA events; the median of
+    three windows, each after a warm-up that includes any search)."""
+    cudnn = torch.backends.cudnn
+    before = (cudnn.benchmark, cudnn.deterministic)
+    t0 = time.perf_counter()
+    try:
+        for precision in ('float32', 'bfloat16'):
+            times = []
+            for label, benchmark, deterministic in (
+                    ('heuristics', False, False),
+                    ('deterministic (eval, infer)', False, True),
+                    ('timed search (train)', True, False),
+                    ('heuristics after the search', False, False)):
+                cudnn.benchmark, cudnn.deterministic = benchmark, deterministic
+                ms = sorted(eval_window_ms(model, precision) for _ in range(3))[1]
+                times.append(f'{label} {ms:.3f} ms')
+            phase('cudnn policy', f'one batch of 32, forward + loss, {precision}: '
+                                  + '; '.join(times))
+        phase('cudnn policy', f'took {time.perf_counter() - t0:.1f} s')
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
+
+
+def capture_stdout(fn, *args):
+    """``fn(*args)`` with its standard output captured, then printed."""
+    import contextlib
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    print(out.getvalue(), end='', flush=True)
+    return result, out.getvalue()
+
+
+def timed_run_evaluation():
+    """Wrap bin.eval_3d.run_evaluation_3d to record its wall seconds: the
+    window in which the loader, the uploads, the device and the host-side
+    metrics share one thread. Returns (the list the times go to, undo)."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    real, seconds = eval_3d.run_evaluation_3d, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    eval_3d.run_evaluation_3d = timed
+    return seconds, lambda: setattr(eval_3d, 'run_evaluation_3d', real)
+
+
+def dataset_eval_phase(name, argv, examples, headings):
+    """bin.eval_3d on ``argv`` (a real dataset's fake corpus): the forward
+    kernel once a batch (once an example with --multicrop), ``headings``
+    printed, finite metrics; device ms per batch and the host's share of the
+    evaluation's wall window."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    seconds, undo = timed_run_evaluation()
+    counters = reset_counts()
+    try:
+        (rows, stats), printed = capture_stdout(eval_3d.main, argv)
+    finally:
+        undo()
+    launches = read_counts(counters)
+    expected = {'dsnt_jsd_fwd': stats['batches'], 'dsnt_jsd_bwd': 0}
+    phase(name, f'kernel launches {launches}, expected {expected}')
+    missing = [h for h in headings if h not in printed]
+    finite = all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m])
+    if launches != expected or not stats['batches'] or missing:
+        raise AssertionError(f'{name} launched {launches}, expected {expected}; missing output '
+                             f'{missing}')
+    if not (finite and math.isfinite(stats['mean_loss']) and len(rows['mpjpe']) == examples):
+        raise AssertionError(f'{name} gave non-finite metrics or loss, or lost examples')
+    ms = [t * 1e3 for t in stats['batch_seconds']]
+    window_ms = seconds[0] * 1e3
+    phase(name, f'device ms per batch: {", ".join(f"{m:.3f}" for m in ms)}; evaluation window '
+                f'{window_ms:.3f} ms (host clock), device busy {sum(ms):.3f} ms, host\'s share '
+                f'{1 - sum(ms) / window_ms:.1%}; mean loss {stats["mean_loss"]}; overall '
+                f'{eval_3d.overall_metrics(rows)}')
+    return launches
+
+
+def mpi3d_train_phase():
+    """bin.train_3d with the mpi3d preset (mpi3d-trainval + mpii-trainval,
+    augmented, compositing from resources/) at batch 32, float32: both
+    kernels once a step, every batch mixing 3D and 2D examples."""
+    from margipose_tpu_torch.bin import train_3d
+    from margipose_tpu_torch.data.mpi_inf_3dhp import _resource_files
+
+    for kind, pattern in (('backgrounds', 'backgrounds/*.jpg'), ('textures', 'textures/*.png')):
+        if not _resource_files(kind, pattern):
+            raise AssertionError(f'no {kind} under {os.environ["MARGIPOSE_RESOURCES_DIR"]}: '
+                                 f'compositing would do nothing')
+    out_dir = os.path.join(WORK, 'mpi3d_train')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    real_prefetch, seen = train_3d.device_prefetch, []
+
+    def recording(loader, *args, **kwargs):
+        for batch, device_batch in real_prefetch(loader, *args, **kwargs):
+            seen.append(sorted({int(v) for v in batch['valid_depth']}))
+            yield batch, device_batch
+
+    train_3d.device_prefetch = recording
+    counters = reset_counts()
+    try:
+        result = train_3d.main(['with', 'margipose_model', 'mpi3d', 'epochs=1', 'batch_size=32',
+                                f'train_examples={32 * MPI3D_TRAIN_STEPS}', 'use_aug=True',
+                                'metrics_every=1', 'seed=11', "precision='float32'",
+                                "ship='float32'", f'out_dir={out_dir}', 'experiment_id=mpi3d'])
+    finally:
+        train_3d.device_prefetch = real_prefetch
+    launches = read_counts(counters)
+    steps = MPI3D_TRAIN_STEPS
+    expected = {'dsnt_jsd_fwd': steps, 'dsnt_jsd_bwd': steps}
+    phase('mpi3d train', f'kernel launches {launches}, expected {expected}; valid_depth values '
+                         f'per batch {seen}')
+    ckpt = os.path.join(out_dir, 'mpi3d', 'model-latest')
+    if launches != expected or result['step'] != steps or seen != [[0, 1]] * steps:
+        raise AssertionError(f'mpi3d train launched {launches} in {result["step"]} steps with '
+                             f'valid_depth {seen}, expected {expected} in {steps}, each {{0, 1}}')
+    if not (math.isfinite(result['train_loss']) and os.path.isdir(ckpt)):
+        raise AssertionError(f'mpi3d train: loss {result["train_loss"]}, model-latest written '
+                             f'{os.path.isdir(ckpt)}')
+    ms = [t * 1e3 for t in result['step_seconds']]
+    phase('mpi3d train', f'train loss {result["train_loss"]:.6f}; model-latest written; device ms '
+                         f'per step of 32: first {ms[0]:.3f} (cuDNN\'s algorithm search), then '
+                         f'{", ".join(f"{m:.3f}" for m in ms[1:])}; data_load_time '
+                         f'{result["data_load_time"]:.4f} s a step')
+    return launches
+
+
+def datasets_phase(model, ckpt):
+    """Phase 18: the real datasets. The kernels on the mixed recipe's rows
+    ran in the kernel phases and the cuDNN policies before the main path;
+    here the mixed-batch train parity, then, where h5py is installed (the processed layouts are
+    HDF5), the mpi3d-test eval gate with no --dataset, --multicrop, the
+    h36m-test eval and the mpi3d train preset on fake corpora. Returns the
+    launches by path (None for a path that did not run)."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    mixed_train_parity_phase(model)
+    paths = ('mpi3d_eval', 'mpi3d_multicrop', 'h36m_eval', 'mpi3d_train')
+    if importlib.util.find_spec('h5py') is None:
+        phase('datasets', 'h5py is not installed here, so the HDF5 dataset sub-phases (the '
+                          'mpi3d-test eval gate and its --multicrop, the h36m-test eval, the '
+                          'mpi3d train preset) did not run: the processed MPI-INF-3DHP, '
+                          'Human3.6M and MPII layouts are HDF5 files')
+        phase('datasets', f'phase 18 took {time.perf_counter() - t_phase:.1f} s')
+        return dict.fromkeys(paths)
+    from margipose_tpu_torch.data.fake_mpi3d import generate_fake_mpi3d
+    from margipose_tpu_torch.data.fakes import generate_fake_h36m, generate_fake_mpii
+
+    base = os.path.join(WORK, 'datasets')
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_fake_mpi3d(os.path.join(base, 'mpi3d', 'test'), seqs=((1, 1), (2, 1)),
+                        camera_ids=(0,), n_frames=24, with_activities=True)
+    generate_fake_mpi3d(os.path.join(base, 'few', 'mpi3d', 'test'), seqs=((1, 1), (2, 1)),
+                        camera_ids=(0,), n_frames=MULTICROP_EXAMPLES // 2, with_activities=True)
+    generate_fake_h36m(os.path.join(base, 'h36m'), subjects=(9,), camera_ids=(1, 2), n_frames=8)
+    generate_fake_mpi3d(os.path.join(base, 'mpi3d', 'train'), seqs=((1, 1),), camera_ids=(0,),
+                        n_frames=24, seed=1)
+    generate_fake_mpi3d(os.path.join(base, 'mpi3d', 'val'), seqs=((2, 2),), camera_ids=(0,),
+                        n_frames=24, seed=2)
+    generate_fake_mpii(os.path.join(base, 'mpii'), n_train=32, n_val=16)
+    phase('datasets', f'fake corpora written in {time.perf_counter() - t0:.1f} s under {base}')
+    os.environ['MARGIPOSE_BASE_DATA_DIR'] = base
+    os.environ['MARGIPOSE_RESOURCES_DIR'] = os.path.join(ROOT, 'resources')
+    tables = ('### By sequence', '### By activity', '### Overall', 'TS1/Seq1', 'TS2/Seq1')
+    by_path = {'mpi3d_eval': dataset_eval_phase(
+        'mpi3d eval', ['--model', ckpt, '--batch-size', '32', '--precision', 'float32',
+                       '--device', 'cuda'], 48, tables)}
+    os.environ['MARGIPOSE_BASE_DATA_DIR'] = os.path.join(base, 'few')
+    by_path['mpi3d_multicrop'] = dataset_eval_phase(
+        'mpi3d multicrop', ['--model', ckpt, '--multicrop', '--precision', 'float32',
+                            '--device', 'cuda'], MULTICROP_EXAMPLES, tables)
+    os.environ['MARGIPOSE_BASE_DATA_DIR'] = base
+    by_path['h36m_eval'] = dataset_eval_phase(
+        'h36m eval', ['--model', ckpt, '--dataset', 'h36m-test', '--batch-size', '8',
+                      '--precision', 'float32', '--device', 'cuda'], 16,
+        ('Use ground truth root joint depth? True', 'Number of joints in evaluation: 17'))
+    by_path['mpi3d_train'] = mpi3d_train_phase()
+    phase('datasets', f'phase 18 took {time.perf_counter() - t_phase:.1f} s')
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card',
@@ -1277,6 +1623,7 @@ def main():
 
     set_float32_parity_mode()
     model = flagship('cuda')
+    cudnn_policy_phase(model)
     by_path = {}
     by_path['eval'], ckpt = main_path_phase(model)
     trace_phase(model)
@@ -1292,10 +1639,12 @@ def main():
     by_path['serve'] = serve_phase(ckpt)
     by_path.update(stems_phase())
     by_path.update(chatterbox_phase())
+    by_path.update(datasets_phase(model, ckpt))
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]
-        k['launches_by_path'] = {path: counts[k['name']] for path, counts in by_path.items()}
+        k['launches_by_path'] = {path: None if counts is None else counts[k['name']]
+                                 for path, counts in by_path.items()}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,7 @@ Counterpart of ``margipose_tpu/bin/eval_3d.py`` (reference:
 src/margipose/bin/eval_3d.py)::
 
     python -m margipose_tpu_torch.bin.eval_3d --model FILE.pth \\
-        --dataset synthetic-64 --batch-size 32 [--precision bfloat16] \\
+        [--dataset mpi3d-test] --batch-size 32 [--precision bfloat16] \\
         [--ship auto|uint8|float32] [--multicrop] [--device cpu]
 
 Each batch is padded to ``--batch-size``, uploaded, and run through the
@@ -23,7 +23,6 @@ CUDA events (host clock on the CPU).
 from __future__ import annotations
 
 import argparse
-import random
 import sys
 from time import perf_counter
 
@@ -42,6 +41,7 @@ from margipose_tpu_torch.models import data_specs_for_desc
 from margipose_tpu_torch.models.margipose import margipose_masked_loss
 from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
+from margipose_tpu_torch.utils import init_algorithms, seed_all
 
 METRICS = ('aligned_auc', 'aligned_mpjpe', 'aligned_pck', 'auc', 'mpjpe', 'pck')
 
@@ -52,7 +52,7 @@ def parse_args(argv):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument('--model', type=str, metavar='FILE', required=True,
                         help='path to a reference-format .pth model file')
-    parser.add_argument('--dataset', type=str, metavar='DS', default='synthetic-64',
+    parser.add_argument('--dataset', type=str, metavar='DS', default='mpi3d-test',
                         help='dataset to evaluate on')
     parser.add_argument('--multicrop', action='store_true',
                         help='average each example\'s prediction over its 10 crops')
@@ -276,8 +276,10 @@ def set_float32_parity_mode():
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    random.seed(12345)
-    np.random.seed(12345)
+    seed_all(12345)
+    # cuDNN's deterministic algorithms, whatever an earlier train run in the
+    # process left (reference: src/margipose/bin/eval_3d.py)
+    init_algorithms(deterministic=True)
     device = resolve_device(args.device)
     compute_dtype = resolve_dtype(args.precision)
     if compute_dtype == torch.float32:

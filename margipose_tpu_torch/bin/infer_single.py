@@ -32,7 +32,7 @@ from margipose_tpu_torch.geometry.coords import ensure_cartesian
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc
 from margipose_tpu_torch.models import data_specs_for_desc, default_data_specs
 from margipose_tpu_torch.ops.image import device_augment
-from margipose_tpu_torch.utils import plot_skeleton_on_axes3d, seed_all
+from margipose_tpu_torch.utils import init_algorithms, plot_skeleton_on_axes3d, seed_all
 
 
 def parse_args(argv):
@@ -146,6 +146,7 @@ def infer_image(model, image: PIL.Image.Image, model_desc=None, multicrop: bool 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     seed_all(12345)
+    init_algorithms(deterministic=True)
     device = resolve_device(args.device)
     set_float32_parity_mode()
 

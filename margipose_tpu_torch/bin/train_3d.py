@@ -37,6 +37,7 @@ from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.bin.eval_3d import DeviceClock, set_float32_parity_mode
 from margipose_tpu_torch.checkpoint import load_model
 from margipose_tpu_torch.config import Experiment
+from margipose_tpu_torch.data.mpi_inf_3dhp import MpiInf3dDataset
 from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.models import (
@@ -132,9 +133,6 @@ ex.add_config(
 NOT_PORTED = [
     ('device_aug', lambda v: not v, 'section 1, on-device augmentation'),
     ('device_aug_canvas', lambda v: not v, 'section 1, on-device augmentation'),
-    ('preserve_root_joint_at_univ_scale', lambda v: not v, 'section 1, periphery (real datasets)'),
-    ('train_datasets', lambda v: len(v) == 1, 'section 1, periphery (mixed datasets)'),
-    ('val_datasets', lambda v: len(v) <= 1, 'section 1, periphery (mixed datasets)'),
 ]
 
 
@@ -215,6 +213,8 @@ def run_training(cfg: dict, device='cuda') -> dict:
     print(json.dumps(model_desc, sort_keys=True, indent=2))
 
     # ---- Data ----
+    MpiInf3dDataset.preserve_root_joint_at_univ_scale = \
+        cfg['preserve_root_joint_at_univ_scale']
     data_specs = data_specs_for_desc(model_desc)
     ship_specs = data_specs.input_specs if cfg['ship'] == 'uint8' else None
     train_loader = create_train_dataloader(

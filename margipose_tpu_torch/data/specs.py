@@ -42,7 +42,9 @@ class ImageSpecs:
         """Invert ``convert`` back to the EXACT source uint8 pixels.
 
         Every host pipeline path materialises a uint8 image immediately
-        before ``convert`` (the PIL warp in geometry/transforms.py), so the
+        before ``convert`` (the fused native warp rounds to uint8 in
+        geometry/transforms.py to match PIL's behaviour; PIL's own warp runs
+        only under ``MARGIPOSE_DISABLE_NATIVE``), so the
         normalised input is always ``(u/255 - mean)/std`` of integer pixel
         values and ``round((x*std + mean)*255)`` recovers u exactly
         (float32 round-trip error ~1e-5 << the 0.5 rounding threshold).

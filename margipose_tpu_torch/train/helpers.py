@@ -2,8 +2,8 @@
 
 Counterpart of ``margipose_tpu/train/helpers.py:13-104`` (reference:
 src/margipose/train_helpers.py:15-105), without the on-device augmentation
-branch and with one train dataset (the mixed-dataset recipe is not ported
-yet).
+branch: several datasets per loader go through ``MixedPoseDataset``, each
+with its own augmentation seed.
 """
 
 from __future__ import annotations
@@ -12,17 +12,22 @@ import numpy as np
 
 from margipose_tpu_torch.data.get_dataset import get_dataset
 from margipose_tpu_torch.data.loader import DataLoader
+from margipose_tpu_torch.data.mixed import MixedPoseDataset
 from margipose_tpu_torch.utils import draw_skeleton_2d
 
 
 def _create_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch,
                        use_aug, num_workers=4, seed=None):
-    if len(dataset_names) != 1:
-        raise NotImplementedError(
-            f'datasets {dataset_names}: the port loads exactly one dataset per loader; '
-            'mixed datasets (data/mixed.py) are not ported yet '
-            '(ROADMAP.md section 1, periphery (mixed datasets))')
-    dataset = get_dataset(dataset_names[0], data_specs, use_aug=use_aug)
+    datasets = [
+        get_dataset(name, data_specs, use_aug=use_aug,
+                    # distinct per-source aug streams, derived from the one
+                    # loader seed (reproducible; see PoseDataset.example_rng)
+                    seed=None if seed is None else seed + 7919 * i)
+        for i, name in enumerate(dataset_names)
+    ]
+    if not datasets:
+        raise ValueError('at least one dataset must be specified')
+    dataset = datasets[0] if len(datasets) == 1 else MixedPoseDataset(datasets)
     return DataLoader(
         dataset,
         sampler=dataset.sampler(examples_per_epoch=examples_per_epoch, seed=seed),

@@ -254,3 +254,45 @@ def test_cuda_log_normal_is_logf():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     assert log_normal_mismatches() == 0
+
+
+def _off_map_groups(g, b, j, seed):
+    """G groups of 32x32 heatmaps whose target means lie in [-3, 3]: the
+    mixed 2D/3D recipe's MPII joints that leave the crop, and any joint that
+    rotation and shifts push off the map. Far off the map the target
+    Gaussian underflows to zero and q = 0 / (0 + eps)."""
+    ps, _ = _groups(g, b, j, 32, 32, seed=seed, planes=3)
+    rng = np.random.RandomState(seed + 1)
+    mus = [rng.uniform(-3, 3, (b, j, 2)).astype(np.float32) for _ in range(3)]
+    return ps, [mus[i % 3] for i in range(g)]
+
+
+def test_grouped_matches_jax_pallas_with_targets_off_the_map():
+    ps, mus = _off_map_groups(3, 2, 17, seed=40)
+    assert max(np.abs(mu).max() for mu in mus) > 2.5
+    heads = dsnt_jsd_grouped([torch.from_numpy(p) for p in ps],
+                             [torch.from_numpy(mu) for mu in mus], 1.0)
+    for i, ((coords, jsd), p, mu) in enumerate(zip(heads, ps, mus)):
+        exp_coords, exp_jsd = jax_dsnt_jsd_fused(jnp.asarray(p), jnp.asarray(mu), 1.0)
+        assert np.isfinite(jsd.numpy()).all()
+        assert_allclose(coords.numpy(), np.asarray(exp_coords), atol=1e-5, err_msg=f'group {i}')
+        assert_allclose(jsd.numpy(), np.asarray(exp_jsd), atol=1e-5, err_msg=f'group {i}')
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_kernel_with_targets_off_the_map():
+    """Runs on the card only: the flagship's batch (12 groups of 32 x 17
+    rows) with target means in [-3, 3], one launch against the plain rows;
+    everything finite."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    ps, mus = _off_map_groups(12, 32, 17, seed=41)
+    hms = [torch.from_numpy(p).cuda() for p in ps]
+    mus = [torch.from_numpy(mu).cuda() for mu in mus]
+    before = dsnt_jsd_fwd.launches
+    rows = dsnt_jsd_fwd(hms, mus, 1.0)
+    torch.cuda.synchronize()
+    assert dsnt_jsd_fwd.launches == before + 1
+    rows = rows.cpu().numpy()
+    assert np.isfinite(rows).all()
+    assert_allclose(rows, dsnt_jsd_fwd_plain(hms, mus, 1.0).cpu().numpy(), atol=1e-5)

@@ -228,3 +228,54 @@ def test_cuda_grouped_backward_matches_plain(g, b, j, h, w, sigma, spoil):
     assert all(d is None for d in results[0][g:])
     for got, want in zip(results[0][:g], results[1][:g]):
         assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+
+
+def _mixed_recipe_rows(g, b, j, seed):
+    """G groups of 32x32 rows as the mixed 2D/3D recipe gives them: target
+    means in [-3, 3] (joints off the map), and in the zy/xz groups (i % 3 !=
+    0) the rows of every third example with an upstream gradient of exactly
+    zero (an MPII example, whose zy/xz losses are dropped)."""
+    groups = [_inputs(b, j, 32, 32, seed=seed + i) for i in range(g)]
+    rng = np.random.RandomState(seed)
+    mus = [rng.uniform(-3, 3, (b, j, 2)).astype(np.float32) for _ in range(3)]
+    grad = np.stack([x[3] for x in groups])
+    two_d = (np.arange(b * j) // j) % 3 == 1
+    for i in range(g):
+        if i % 3:
+            grad[i, two_d] = 0
+    return groups, [mus[i % 3] for i in range(g)], grad, two_d
+
+
+def test_plain_backward_matches_jax_vjp_on_mixed_recipe_rows():
+    groups, mus, grad, two_d = _mixed_recipe_rows(3, 3, 17, seed=50)
+    ps = [x[1] for x in groups]
+    got = dsnt_jsd_bwd_plain([torch.from_numpy(p) for p in ps],
+                             [torch.from_numpy(mu) for mu in mus], torch.from_numpy(grad), 1.0)
+    for i in range(3):
+        assert_allclose(got[i].numpy(), _jax_vjp(ps[i], mus[i], grad[i], 1.0), atol=1e-5,
+                        err_msg=f'group {i}')
+    assert np.isfinite(got.numpy()).all()
+    assert not got[1].reshape(-1, 32 * 32)[two_d].any()  # zero gradient in, zero out
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_backward_on_mixed_recipe_rows():
+    """On the card: the flagship's batch (12 groups of 32 x 17 rows) with
+    target means in [-3, 3] and a third of the zy/xz rows with an upstream
+    gradient of exactly zero, one launch against the plain version; those
+    rows' gradients are exactly zero and everything is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    groups, mus, grad, two_d = _mixed_recipe_rows(12, 32, 17, seed=51)
+    ps = [torch.from_numpy(x[1]).cuda() for x in groups]
+    mus = [torch.from_numpy(mu).cuda() for mu in mus]
+    grad = torch.from_numpy(grad).cuda()
+    before = dsnt_jsd_bwd.launches
+    dp = dsnt_jsd_bwd(ps, mus, grad, 1.0)
+    torch.cuda.synchronize()
+    assert dsnt_jsd_bwd.launches == before + 1
+    dp = dp.cpu().numpy()
+    assert np.isfinite(dp).all()
+    assert_allclose(dp, dsnt_jsd_bwd_plain(ps, mus, grad, 1.0).cpu().numpy(), atol=1e-5)
+    for i in range(1, 12, 3):
+        assert not dp[i].reshape(-1, 32 * 32)[two_d].any()

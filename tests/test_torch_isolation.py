@@ -36,7 +36,9 @@ def test_importing_every_port_module_loads_no_jax():
     """Nor matplotlib: only infer's PNG needs it, and it imports it there."""
     modules = _port_modules()
     for name in ('bin.eval_3d', 'bin.train_3d', 'bin.infer_single', 'bin.serve',
-                 'ops.dsnt_jsd', 'ops.image', 'parallel.precision'):
+                 'bin.preprocess_mpi3d', 'ops.dsnt_jsd', 'ops.image', 'parallel.precision',
+                 'data.mpi_inf_3dhp', 'data.mpi3d_raw', 'data.fake_mpi3d', 'data.mixed',
+                 'data.h36m', 'data.mpii', 'data.fakes', 'data.mpi3d_preprocess'):
         assert f'margipose_tpu_torch.{name}' in modules
     code = (
         'import importlib, sys\n'

@@ -193,9 +193,7 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch
 
 @pytest.mark.parametrize('override', [
     'device_aug_canvas=64',
-    'preserve_root_joint_at_univ_scale=True',
     'device_aug=True',
-    "train_datasets=['synthetic-16', 'synthetic-8']",
 ])
 def test_keys_left_out_raise(tmp_path, override):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):

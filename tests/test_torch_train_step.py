@@ -3,7 +3,9 @@
 A calibrated JAX MargiPose (``test_torch_weights.jax_margipose``: 2 stages,
 64 px) is exported into the port through ``state_dict_from_jax``; both take
 one 1cycle step on the same numpy batch (B=2, masked joints, one 2D-only
-example). The JAX step is ``margipose_tpu.train.steps.make_train_step`` on
+example; and a mixed 2D/3D batch with half the 2D example's joints masked
+and targets off the map). The JAX step is
+``margipose_tpu.train.steps.make_train_step`` on
 each of its loss routes: the default stacked XLA route, and the Pallas
 DSNT+JSD route (``use_fused=True``, in interpret mode on the CPU). The port's
 step goes through ``dsnt_jsd_fused``, whose CPU gradient is autograd over its
@@ -56,6 +58,18 @@ def _batch(seed, batch=2, size=64):
     }
 
 
+def _mixed_batch(seed, size=64):
+    """The mixed 2D/3D recipe's rows (an MPI-INF-3DHP and an MPII example):
+    the 2D example has half its joints masked and targets off the map, as
+    MPII joints that leave the crop are (margipose_tpu/data/mpii.py:247-250),
+    so its zy/xz planes get no gradient and its target Gaussians underflow."""
+    batch = _batch(seed, size=size)
+    batch['joint_mask'][1] = np.arange(17) % 2
+    off = [0, 1, 2, 7, 8]  # masked (even) and unmasked (odd) joints
+    batch['target'][1, off, :2] = np.random.RandomState(seed).uniform(1.5, 3.0, (5, 2)) * [1, -1]
+    return batch
+
+
 def _torch_batch(batch):
     return {
         'input': torch.from_numpy(batch['input']).permute(0, 3, 1, 2).contiguous(),
@@ -82,10 +96,12 @@ def _fused_route(out, *args, **kwargs):
     return jax_masked_loss(out._replace(stacked=()), *args, use_fused=True, **kwargs)
 
 
-@pytest.mark.parametrize('route', ['stacked', 'pallas'])
-def test_train_step_matches_jax(calibrated, route, monkeypatch):
+@pytest.mark.parametrize('route,make_batch', [
+    ('stacked', _batch), ('pallas', _batch), ('stacked', _mixed_batch), ('pallas', _mixed_batch)],
+    ids=['stacked', 'pallas', 'stacked-mixed_2d_3d', 'pallas-mixed_2d_3d'])
+def test_train_step_matches_jax(calibrated, route, make_batch, monkeypatch):
     desc, jax_model, variables = calibrated
-    batch = _batch(seed=11)
+    batch = make_batch(seed=11)
     if route == 'pallas':
         monkeypatch.setattr(jax_steps, 'margipose_masked_loss', _fused_route)
     tx = jax_make_optimiser('1cycle', 1.0, **SCHEDULE)
