@@ -93,6 +93,25 @@ Phases, each printing its own lines; any failure exits non-zero:
                    h36m-test at batch 8; bin.train_3d with the mpi3d preset
                    (mpi3d-trainval + mpii-trainval, augmented, 3 steps of
                    32). Without h5py one line says these did not run.
+ 19. device aug    bin.train_3d with device_aug=True at batch 32, full
+                   frames (synthetic-512's 512 px) and crop-ship onto a
+                   384 px canvas (device_aug_canvas=384), each in float32
+                   and bf16, 3 steps and a validation batch: both kernels
+                   once a step, raw uint8 frames uploaded in place of the
+                   input, bytes a batch against the host-augmented uint8
+                   upload; one augmented batch of 32 card against CPU (both
+                   canvases, 1e-5 in pixel units); a device-augmented train
+                   step at batch 2 card against CPU (phase 9's rules);
+ 20. distributed   bin.train_3d under `torch.distributed.run --standalone
+                   --nproc_per_node 1 chip_smoke.py --ddp-worker DIR`: NCCL
+                   at world size 1, so DistributedDataParallel and the
+                   global batch-norm and loss all-reduces run (counted);
+                   both kernels once a step; the worker's train step at
+                   batch 2 against the card's non-distributed step (phase
+                   9's rules) and a traced DDP step of 32 (printed as
+                   [ddp train trace]); bin.eval_3d --num-devices 1 against
+                   plain eval, and --num-devices 2, which must exit with the JAX
+                   bin's message on a one-card machine.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
@@ -153,6 +172,9 @@ STEMS = ('resnet18', 'resnet34', 'resnet50')
 STEM_TRAIN_STEPS = 2       # the resnet34 stem's train path at batch 32
 CHATTERBOX_STEPS = 3       # the Chatterbox train path at batch 32
 MPI3D_TRAIN_STEPS = 3      # the mpi3d preset's train path at batch 32
+DEVICE_AUG_STEPS = 3       # each on-device augmentation train path at batch 32
+CROP_CANVAS = 384          # crop-ship canvas of the device_aug_canvas paths
+DDP_STEPS = 3              # the train bin's steps under the NCCL process group
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -1389,27 +1411,39 @@ def mixed_batch(seed):
     return batch
 
 
+def step_parity(name, what, model, batch_for, distributed=None):
+    """One train step at batch 2 on the card against the reference step,
+    under train_parity_phase's rules: ``batch_for(device)`` gives the batch;
+    the reference is the CPU's step, or ``distributed`` (loss, state_dict)
+    checked against the card's own non-distributed step."""
+    initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    if distributed is None:
+        loss_gpu, gpu = train_step_state(model, 'cuda', batch_for('cuda'))
+        loss_ref, ref = train_step_state(model, 'cpu', batch_for('cpu'))
+    else:
+        loss_gpu, gpu = distributed
+        loss_ref, ref = train_step_state(model, 'cuda', batch_for('cuda'))
+    loss_rel = abs(loss_gpu - loss_ref) / abs(loss_ref)
+    share, row_share = worst_update_share(gpu, ref, initial), worst_row_share(gpu, ref, initial)
+    worst_buffer = max(((gpu[k] - ref[k]).abs() / (1e-5 + 1e-4 * ref[k].abs())).max().item()
+                       for k in ref if 'running_' in k)
+    finite = all(torch.isfinite(v).all() for v in gpu.values()) and math.isfinite(loss_gpu)
+    phase(name, f'{what}: loss {loss_gpu:.6f} vs {loss_ref:.6f}, rel err {loss_rel:.3g} (rtol '
+                f'1e-3); worst parameter tensor at {share[0]:.4f} of 10% of its update + 1e-6 RMS '
+                f'({share[1]}); worst joint row at {row_share[0]:.4f} ({row_share[1]}, row '
+                f'{row_share[2]}); worst BN buffer at {worst_buffer:.3g}; finite {finite}')
+    if not (finite and loss_rel <= 1e-3 and share[0] <= 1 and row_share[0] <= 1
+            and worst_buffer <= 1):
+        raise AssertionError(f'{name}: {what} disagrees')
+
+
 def mixed_train_parity_phase(model):
     """One flagship train step at batch 2 on a mixed 2D/3D batch, card
     against CPU, under train_parity_phase's rules."""
     batch = mixed_batch(seed=12)
-    initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
-    loss_gpu, gpu = train_step_state(model, 'cuda', batch)
-    loss_cpu, cpu = train_step_state(model, 'cpu', batch)
-    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    share, row_share = worst_update_share(gpu, cpu, initial), worst_row_share(gpu, cpu, initial)
-    worst_buffer = max(((gpu[k] - cpu[k]).abs() / (1e-5 + 1e-4 * cpu[k].abs())).max().item()
-                       for k in cpu if 'running_' in k)
-    finite = all(torch.isfinite(v).all() for v in gpu.values()) and math.isfinite(loss_gpu)
-    phase('datasets', f'mixed 2D/3D batch of 2 (valid_depth 1 and 0, half the 2D example\'s '
-                      f'joints masked, 5 targets off the map), one train step card vs CPU: loss '
-                      f'{loss_gpu:.6f} vs {loss_cpu:.6f}, rel err {loss_rel:.3g} (rtol 1e-3); worst '
-                      f'parameter tensor at {share[0]:.4f} of 10% of its update + 1e-6 RMS '
-                      f'({share[1]}); worst joint row at {row_share[0]:.4f} ({row_share[1]}, row '
-                      f'{row_share[2]}); worst BN buffer at {worst_buffer:.3g}; finite {finite}')
-    if not (finite and loss_rel <= 1e-3 and share[0] <= 1 and row_share[0] <= 1
-            and worst_buffer <= 1):
-        raise AssertionError('a mixed 2D/3D train step on the card disagrees with the CPU\'s')
+    step_parity('datasets', 'mixed 2D/3D batch of 2 (valid_depth 1 and 0, half the 2D '
+                            'example\'s joints masked, 5 targets off the map), one train step card '
+                            'vs CPU', model, lambda device: batch)
 
 
 def cudnn_policy_phase(model):
@@ -1608,6 +1642,301 @@ def datasets_phase(model, ckpt):
     return by_path
 
 
+def recording_uploads(train_3d):
+    """Wrap bin.train_3d.device_prefetch to record each uploaded batch's
+    device fields. Returns (the list they go to, undo)."""
+    real, seen = train_3d.device_prefetch, []
+
+    def recording(loader, *args, **kwargs):
+        for batch, device_batch in real(loader, *args, **kwargs):
+            seen.append(sorted(device_batch))
+            yield batch, device_batch
+
+    train_3d.device_prefetch = recording
+    return seen, lambda: setattr(train_3d, 'device_prefetch', real)
+
+
+def bytes_uploaded(batch, ship_specs):
+    """The host bytes bin.train_3d.device_prefetch hands to data.specs.to_device
+    (the one host-to-device copy) for ``batch``."""
+    from margipose_tpu_torch.bin import train_3d
+    from margipose_tpu_torch.data import specs
+
+    real, sizes = specs.to_device, []
+
+    def counting(arr, device):
+        sizes.append(arr.nbytes)
+        return real(arr, device)
+
+    specs.to_device = train_3d.to_device = counting
+    try:
+        next(train_3d.device_prefetch([batch], torch.device('cuda'), 1, ship_specs))
+    finally:
+        specs.to_device = train_3d.to_device = real
+    return sum(sizes)
+
+
+def synthetic_loader(batch, **device_aug):
+    """bin.train_3d's loader over synthetic-512 (512 px frames), augmented,
+    ``batch`` examples; ``device_aug`` keywords as create_train_dataloader's."""
+    from margipose_tpu_torch.models import Default_MargiPose_Desc, data_specs_for_desc
+    from margipose_tpu_torch.train.helpers import create_train_dataloader
+
+    return create_train_dataloader(['synthetic-512'], data_specs_for_desc(Default_MargiPose_Desc),
+                                   batch, batch, use_aug=True, num_workers=4, seed=0,
+                                   **device_aug)
+
+
+def aug_input(raw_batch, device):
+    """The train bin's aug step on ``device`` over a raw device-aug batch:
+    its batch with the augmented NCHW input in place of the raw fields."""
+    from margipose_tpu_torch.bin import train_3d
+
+    specs = raw_batch['specs']
+    x = train_3d.make_aug_step(specs)(*(torch.from_numpy(np.asarray(raw_batch[k])).to(device)
+                                        for k in ('raw_image', 'aug_affine', 'aug_colour')))
+    return {'input': x, 'target': torch.from_numpy(np.asarray(raw_batch['target'])),
+            'joint_mask': torch.from_numpy(np.asarray(raw_batch['joint_mask'])),
+            'valid_depth': torch.from_numpy(np.asarray(raw_batch['valid_depth']))}
+
+
+def device_aug_phase(model):
+    """Phase 19: on-device augmentation. bin.train_3d with device_aug=True at
+    batch 32, full frames (synthetic-512's 512 px) and crop-ship onto
+    CROP_CANVAS px, each in float32 and bf16: both kernels once a step (the
+    forward once more for the validation batch), the bytes each batch
+    uploads against the host-augmented uint8 input's; one augmented batch of
+    32, card against CPU, in pixel units; a device-augmented train step at
+    batch 2, card against CPU, under the L2 rule. Returns the launches by
+    path."""
+    from margipose_tpu_torch.bin import train_3d
+    from margipose_tpu_torch.models import Default_MargiPose_Desc, data_specs_for_desc
+
+    t_phase = time.perf_counter()
+    specs = data_specs_for_desc(Default_MargiPose_Desc).input_specs
+    sizes = {'host-augmented input, uint8 (32x256x256x3)': bytes_uploaded(
+        next(iter(synthetic_loader(32))), specs)}
+    for canvas in (0, CROP_CANVAS):
+        label = f'crop-ship onto {CROP_CANVAS} px' if canvas else 'full 512 px frames'
+        sizes[label] = bytes_uploaded(next(iter(synthetic_loader(
+            32, device_aug=True, device_aug_canvas=canvas))), None)
+    phase('device aug', 'host-to-device bytes a train batch of 32: '
+                        + '; '.join(f'{k} {v}' for k, v in sizes.items()))
+    by_path = {}
+    for path, label, words in (
+            ('device_aug_train', 'full frames, float32', ["precision='float32'"]),
+            ('device_aug_train_bf16', 'full frames, bf16', ["precision='bfloat16'"]),
+            ('crop_ship_train', f'crop-ship {CROP_CANVAS} px, float32',
+             ["precision='float32'", f'device_aug_canvas={CROP_CANVAS}']),
+            ('crop_ship_train_bf16', f'crop-ship {CROP_CANVAS} px, bf16',
+             ["precision='bfloat16'", f'device_aug_canvas={CROP_CANVAS}'])):
+        seen, undo = recording_uploads(train_3d)
+        try:
+            by_path[path], _, _ = train_bin_phase(
+                'device aug', ['margipose_model', 'synthetic', 'device_aug=True', *words],
+                DEVICE_AUG_STEPS, path)
+        finally:
+            undo()
+        raw = [fields for fields in seen if 'raw_image' in fields]
+        if len(raw) != DEVICE_AUG_STEPS or any('input' in fields for fields in raw):
+            raise AssertionError(f'{label}: uploaded {seen}, expected {DEVICE_AUG_STEPS} raw '
+                                 f'batches without an input')
+        phase('device aug', f'{label}: each train batch uploaded {raw[0]}')
+
+    for canvas in (0, CROP_CANVAS):
+        loader = synthetic_loader(32, device_aug=True, device_aug_canvas=canvas)
+        batch = dict(next(iter(loader)), specs=specs)
+        std = torch.tensor(specs.stddev)
+        gpu = aug_input(batch, 'cuda')['input'].cpu()
+        cpu = aug_input(batch, 'cpu')['input']
+        err = ((gpu - cpu) * std[:, None, None]).abs()
+        side = batch['raw_image'].shape[1]
+        phase('device aug', f'one augmented batch of 32 ({side} px raw canvas), card vs CPU: max '
+                            f'abs err {err.max().item():.3g} in pixel units (atol 1e-5), input '
+                            f'{tuple(gpu.shape)} finite {bool(torch.isfinite(gpu).all())}')
+        if not (err.max().item() <= 1e-5 and torch.isfinite(gpu).all()):
+            raise AssertionError('the aug step on the card disagrees with the CPU\'s')
+
+    raw2 = dict(next(iter(synthetic_loader(2, device_aug=True))), specs=specs)
+    step_parity('device aug', 'device-augmented batch of 2 (512 px frames), one train step card '
+                              'vs CPU', model, lambda device: aug_input(raw2, device))
+    phase('device aug', f'phase 19 took {time.perf_counter() - t_phase:.1f} s')
+    return by_path
+
+
+def ddp_worker(work):
+    """A process torchrun starts for phase 20 (``--ddp-worker WORK``): it
+    joins torchrun's NCCL process group, takes one train step on its rows of
+    the global batch in ``WORK/input.pt`` from the weights there
+    (DistributedDataParallel, global batch norm and loss all-reduces),
+    traces a step of 32 as phase 8 does (process 0), then runs bin.train_3d's
+    flagship path at a global batch of 32 for DDP_STEPS steps and a
+    validation batch with every kernel's count and the all-reduces counted
+    from 0; writes ``WORK/result<rank>.pt``."""
+    import torch.distributed as dist
+
+    from margipose_tpu_torch.bin import train_3d
+    from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
+    from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model
+    from margipose_tpu_torch.parallel import mesh
+
+    set_float32_parity_mode()
+    device = mesh.init_from_env(torch.device('cuda'))
+    try:
+        inputs = torch.load(os.path.join(work, 'input.pt'))
+        model = create_model(Default_MargiPose_Desc).to(device)
+        model.load_state_dict(inputs['model'])
+        rows = mesh.host_local_slice(len(inputs['batch']['valid_depth']))
+        step = train_step_state(model, device, {k: v[rows] for k, v in inputs['batch'].items()})
+        rank = mesh.process_index()  # every process traces: the collectives need them all
+        train_trace_phase(model, 'float32',
+                          'ddp train trace' if rank == 0 else f'ddp train trace, process {rank}')
+        real, reduced = mesh.all_reduce_sum, []
+
+        def counting(tensor):
+            reduced.append(tensor.numel())
+            return real(tensor)
+
+        mesh.all_reduce_sum = counting
+        counters = reset_counts()
+        try:
+            result = train_3d.main(['with', 'margipose_model', 'synthetic', 'epochs=1',
+                                    'batch_size=32', f'train_examples={32 * DDP_STEPS}',
+                                    "val_datasets=['synthetic-32@1']", 'val_examples=32',
+                                    'metrics_every=1', 'seed=9', "precision='float32'",
+                                    "ship='float32'", f'out_dir={work}', 'experiment_id=ddp'])
+        finally:
+            mesh.all_reduce_sum = real
+        torch.save({'step': step, 'launches': read_counts(counters), 'result': result,
+                    'backend': dist.get_backend(), 'world': mesh.process_count(),
+                    'all_reduces': len(reduced), 'device': str(device)},
+                   os.path.join(work, f'result{mesh.process_index()}.pt'))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def distributed_phase(model, ckpt, nproc=1):
+    """Phase 20: data parallelism. bin.train_3d under ``torch.distributed.run
+    --nproc_per_node nproc`` (``ddp_worker``): NCCL, so DistributedDataParallel
+    and the global batch-norm and loss all-reduces run even at world size 1;
+    both kernels once a step in every process; the processes' train step on
+    a global batch of 2 x nproc against one process's non-distributed step
+    on the whole batch under the L2 rule, and every process's weights equal.
+    Then bin.eval_3d --num-devices nproc against plain eval (the forward once
+    a device a batch), and, on one card, --num-devices 2, which must exit
+    with the JAX bin's message. Returns the launches by path."""
+    from margipose_tpu_torch.bin import eval_3d
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, 'ddp')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    batch = flagship_batch(2 * nproc, seed=3)
+    torch.save({'model': {k: v.cpu() for k, v in model.state_dict().items()}, 'batch': batch},
+               os.path.join(work, 'input.pt'))
+    proc = subprocess.run([sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                           '--nproc_per_node', str(nproc), os.path.abspath(__file__),
+                           '--ddp-worker', work], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith(('torch.distributed:', '[epoch')):
+            phase('distributed', f'worker: {line}')
+        elif line.startswith('[ddp train trace]'):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f'the torchrun workers exited {proc.returncode}:\n'
+                             f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    outs = [torch.load(os.path.join(work, f'result{r}.pt')) for r in range(nproc)]
+    out = outs[0]
+    launches, result = out['launches'], out['result']
+    expected = {'dsnt_jsd_fwd': DDP_STEPS + 1, 'dsnt_jsd_bwd': DDP_STEPS}
+    ms = [t * 1e3 for t in result['step_seconds']]
+    phase('distributed', f'bin.train_3d under torchrun: backend {out["backend"]}, world '
+                         f'{out["world"]}, {[o["device"] for o in outs]}; kernel launches '
+                         f'{[o["launches"] for o in outs]}, expected {expected} in each '
+                         f'process; {out["all_reduces"]} all-reduces (batch norm and loss); '
+                         f'train loss {result["train_loss"]:.6f}; device ms per step of '
+                         f'{32 // nproc} a process: first {ms[0]:.3f}, then '
+                         f'{", ".join(f"{m:.3f}" for m in ms[1:])}')
+    if (any(o['launches'] != expected for o in outs) or result['step'] != DDP_STEPS
+            or out['backend'] != 'nccl' or out['world'] != nproc or not out['all_reduces']
+            or not math.isfinite(result['train_loss'])):
+        raise AssertionError(f'the train bin under torchrun: {outs}')
+    differ = [k for o in outs[1:] for k, v in o['step'][1].items()
+              if not torch.equal(v, out['step'][1][k])]
+    phase('distributed', f'after the step on a global batch of {2 * nproc}, tensors that differ '
+                         f'between processes: {len(differ)}')
+    if differ:
+        raise AssertionError(f'processes disagree after a step: {differ[:5]}')
+    step_parity('distributed', f'one train step on a global batch of {2 * nproc} under the NCCL '
+                               f'group ({nproc} process(es), DDP) vs one process\'s '
+                               f'non-distributed step on the card', model, lambda device: batch,
+                distributed=out['step'])
+
+    argv = ['--model', ckpt, '--dataset', 'synthetic-64', '--batch-size', '32', '--precision',
+            'float32', '--ship', 'float32', '--device', 'cuda']
+    rows, stats = eval_3d.main(argv)
+    counters = reset_counts()
+    rows_n, stats_n = eval_3d.main(argv + ['--num-devices', str(nproc)])
+    eval_launches = read_counts(counters)
+    diffs = {m: float(np.max(np.abs(np.subtract(rows_n[m], rows[m])))) for m in eval_3d.METRICS}
+    diff = max(diffs.values())
+    loss_rel = abs(stats_n['mean_loss'] - stats['mean_loss']) / abs(stats['mean_loss'])
+    # one device runs plain eval's code path: equal. Several run row blocks
+    # of 32 / nproc, for which cuDNN picks other algorithms: held as
+    # tests/test_torch_eval_bin.py holds the port to JAX (0.1 mm, 1e-3, 1e-4)
+    close = (diff <= 1e-6 if nproc == 1 else
+             all(v <= (0.1 if 'mpjpe' in m else 1e-3) for m, v in diffs.items())
+             and loss_rel <= 1e-4)
+    expected = {'dsnt_jsd_fwd': nproc * stats_n['batches'], 'dsnt_jsd_bwd': 0}
+    phase('distributed', f'bin.eval_3d --num-devices {nproc}: kernel launches {eval_launches}, '
+                         f'expected {expected}; metrics against plain eval max abs diff '
+                         f'{diff:.3g}, mean loss {stats_n["mean_loss"]} vs {stats["mean_loss"]} '
+                         f'(rel {loss_rel:.3g}); device ms per batch of 32: '
+                         f'{", ".join(f"{t * 1e3:.3f}" for t in stats_n["batch_seconds"])}')
+    if eval_launches != expected or not close or len(rows_n['mpjpe']) != 64:
+        raise AssertionError(f'eval --num-devices {nproc} differs from plain eval')
+    if torch.cuda.device_count() == 1:
+        try:
+            eval_3d.main(argv + ['--num-devices', '2'])
+        except SystemExit as exc:
+            message = str(exc)
+        else:
+            raise AssertionError('eval --num-devices 2 ran on a one-card machine')
+        phase('distributed', f'bin.eval_3d --num-devices 2 on one card: SystemExit "{message}"')
+        if message != 'eval: --num-devices 2 exceeds the 1 available device(s)':
+            raise AssertionError(f'eval --num-devices 2 exited with {message!r}')
+    phase('distributed', f'phase 20 took {time.perf_counter() - t_phase:.1f} s')
+    return {'ddp_train': launches, f'eval_num_devices_{nproc}': eval_launches}
+
+
+def multi_gpu_main():
+    """``python3 chip_smoke.py --multi-gpu``, on a machine with several
+    cards: the build and phase 20 across every card (NCCL between them),
+    nothing else. Exits 1 on a machine with fewer than two cards."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f'chip_smoke --multi-gpu: {n} CUDA card(s); this mode needs two or more',
+              file=sys.stderr)
+        return 1
+    kind, _ = device_phase()
+    build_phase()
+    from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
+    from margipose_tpu_torch.checkpoint import save_model
+    from margipose_tpu_torch.models import Default_MargiPose_Desc
+
+    set_float32_parity_mode()
+    model = flagship('cuda')
+    os.makedirs(WORK, exist_ok=True)
+    ckpt = os.path.join(WORK, 'margipose-flagship-random.pth')
+    save_model(ckpt, model, Default_MargiPose_Desc)
+    print(json.dumps({'launches_by_path': distributed_phase(model, ckpt, n)}), flush=True)
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': n}}),
+          flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card',
@@ -1640,6 +1969,8 @@ def main():
     by_path.update(stems_phase())
     by_path.update(chatterbox_phase())
     by_path.update(datasets_phase(model, ckpt))
+    by_path.update(device_aug_phase(model))
+    by_path.update(distributed_phase(model, ckpt))
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]
@@ -1652,4 +1983,8 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--ddp-worker']:
+        sys.exit(ddp_worker(sys.argv[2]))
+    if sys.argv[1:] == ['--multi-gpu']:
+        sys.exit(multi_gpu_main())
     sys.exit(main())

@@ -7,7 +7,8 @@ find:
   geometry/  camera model, skeleton math, normalisation, 2D transforms (numpy)
   models/    NCHW nn.Modules with the reference state_dict keys + registry
   data/      host datasets, the thread-pool loader (numpy), uint8 upload
-  parallel/  the bf16 autocast policy (precision.py)
+  parallel/  the bf16 autocast policy (precision.py), the multi-GPU process
+             group (mesh.py)
   train/     train/eval steps, schedules, train-state checkpoints, meters
   bin/       CLI entry points (eval_3d, train_3d, infer_single, serve)
 

@@ -6,7 +6,7 @@ src/margipose/bin/eval_3d.py)::
 
     python -m margipose_tpu_torch.bin.eval_3d --model FILE.pth \\
         [--dataset mpi3d-test] --batch-size 32 [--precision bfloat16] \\
-        [--ship auto|uint8|float32] [--multicrop] [--device cpu]
+        [--ship auto|uint8|float32] [--multicrop] [--num-devices N] [--device cpu]
 
 Each batch is padded to ``--batch-size``, uploaded, and run through the
 forward pass and the masked loss under ``torch.inference_mode()``. With
@@ -17,12 +17,15 @@ input as its exact source pixels and renormalises it on the device. Results
 come back to the host in a window of in-flight batches: batch k is read only
 after batches k+1..k+W have been enqueued, so the host-side geometry overlaps
 the device instead of syncing every batch. Device time per batch comes from
-CUDA events (host clock on the CPU).
+CUDA events (host clock on the CPU). ``--num-devices N`` evaluates on N
+cards in one process: one weight replica a card, each batch split into N
+equal row blocks, the results gathered in row order.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import sys
 from time import perf_counter
 
@@ -38,7 +41,7 @@ from margipose_tpu_torch.eval import gather_3d_metrics, prepare_for_3d_evaluatio
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc, VNect_Common_Skeleton
 from margipose_tpu_torch.models import data_specs_for_desc
-from margipose_tpu_torch.models.margipose import margipose_masked_loss
+from margipose_tpu_torch.models.margipose import margipose_joint_losses, margipose_masked_loss
 from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
 from margipose_tpu_torch.utils import init_algorithms, seed_all
@@ -69,6 +72,12 @@ def parse_args(argv):
                              'which differs from the host normalisation at the last ulp; '
                              'float32 uploads the host-normalised input. auto: uint8 under '
                              'bfloat16, float32 under float32')
+    parser.add_argument('--num-devices', type=int, metavar='N', default=1,
+                        help='data-parallel evaluation: one weight replica on each of N '
+                             'local cards (0 = all), each batch split into N equal row '
+                             'blocks; batch-size must be divisible by N. Incompatible with '
+                             '--multicrop (10-crop items are one example). On the CPU the N '
+                             'replicas share the one device')
     parser.add_argument('--num-workers', type=int, metavar='N', default=0,
                         help='loader threads preparing upcoming batches')
     parser.add_argument('--device', type=str, default='cuda',
@@ -255,16 +264,71 @@ def overall_metrics(rows) -> dict:
     return {m: float(np.mean(rows[m])) for m in METRICS}
 
 
-def make_forward(model, pixelwise_loss, compute_dtype=None):
+def make_forward(model, pixelwise_loss, compute_dtype=None, distributed=False):
     """``forward(images, target, mask, valid_depth) -> (xyz, loss)``, both
     float32: the model runs under ``compute_dtype_scope``, the loss outside
-    it (its heatmaps are float32 either way)."""
+    it (its heatmaps are float32 either way); over the process group's
+    global batch with ``distributed``."""
     def forward(images, target, mask, valid_depth):
         with torch.inference_mode():
             with compute_dtype_scope(compute_dtype, images.device):
                 xyz, out = model(images)
-            loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss)
+            loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss,
+                                         distributed)
         return xyz.float(), loss
+    return forward
+
+
+def eval_devices(num_devices, device, batch_size, multicrop) -> list[torch.device]:
+    """The devices ``--num-devices`` evaluates on: ``cuda:0..N-1`` on the card
+    (0: every card), N times the one CPU device on the CPU (0: one). Raises
+    SystemExit with the JAX bin's messages for a request it cannot run."""
+    if device.type == 'cuda':
+        available = torch.cuda.device_count()
+        n_dev = num_devices if num_devices > 0 else available
+        devices = [torch.device('cuda', i) for i in range(min(n_dev, available))]
+    else:
+        available = None
+        n_dev = max(num_devices, 1)
+        devices = [device] * n_dev
+    if n_dev > 1:
+        if multicrop:
+            raise SystemExit(
+                'eval: --num-devices > 1 requires batched mode; --multicrop '
+                'items are one example and cannot shard over devices')
+        if available is not None and n_dev > available:
+            raise SystemExit(
+                f'eval: --num-devices {n_dev} exceeds the {available} available device(s)')
+        if batch_size % n_dev != 0:
+            raise SystemExit(
+                f'eval: --batch-size {batch_size} must be divisible by '
+                f'--num-devices {n_dev}')
+    return devices if n_dev > 1 else [device]
+
+
+def make_data_parallel_forward(model, devices, pixelwise_loss, compute_dtype=None):
+    """``make_forward``'s function over ``len(devices)`` weight replicas:
+    each batch is split into equal row blocks, block i runs on replica i on
+    ``devices[i]``, and the predictions come back to ``devices[0]`` in row
+    order. The loss is the masked mean over the whole batch, from the blocks'
+    numerators and denominators."""
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+
+    def forward(images, target, mask, valid_depth):
+        home = images.device
+        blocks = zip(*(t.chunk(len(devices)) for t in (images, target, mask, valid_depth)))
+        xyzs, nums, dens = [], [], []
+        with torch.inference_mode():
+            for replica, dev, block in zip(replicas, devices, blocks):
+                x, t, m, v = (b.to(dev, non_blocking=True) for b in block)
+                with compute_dtype_scope(compute_dtype, dev):
+                    xyz, out = replica(x)
+                losses = margipose_joint_losses(out, t, v, pixelwise_loss)
+                nums.append((losses * m).sum().to(home))
+                dens.append(m.sum().to(home))
+                xyzs.append(xyz.float().to(home))
+            loss = torch.stack(nums).sum() / torch.stack(dens).sum().clamp(min=1.0)
+        return torch.cat(xyzs), loss
     return forward
 
 
@@ -294,6 +358,7 @@ def main(argv=None):
     if ship == 'auto':
         ship = 'uint8' if args.precision == 'bfloat16' else 'float32'
     print(f'Input upload: {ship}')
+    devices = eval_devices(args.num_devices, device, args.batch_size, args.multicrop)
 
     model, model_desc = load_model(args.model, device)
     dataset = get_dataset(args.dataset, data_specs_for_desc(model_desc), use_aug=False)
@@ -315,8 +380,12 @@ def main(argv=None):
     print(f'Use ground truth root joint depth? {known_depth}')
     print(f'Number of joints in evaluation: {len(included_joints)}')
 
-    forward = make_forward(model, model_desc['settings'].get('pixelwise_loss', 'jsd'),
-                           compute_dtype)
+    pixelwise_loss = model_desc['settings'].get('pixelwise_loss', 'jsd')
+    if len(devices) > 1:
+        forward = make_data_parallel_forward(model, devices, pixelwise_loss, compute_dtype)
+        print(f'Data-parallel eval over {len(devices)} devices')
+    else:
+        forward = make_forward(model, pixelwise_loss, compute_dtype)
     rows, stats = run_evaluation_3d(forward, loader, included_joints, device,
                                     known_depth=known_depth, batch_size=args.batch_size,
                                     print_progress=True, multicrop=args.multicrop,

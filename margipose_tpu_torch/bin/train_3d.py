@@ -2,15 +2,25 @@
 """Train a 3D pose model on the card.
 
 Counterpart of ``margipose_tpu/bin/train_3d.py`` (reference:
-src/margipose/bin/train_3d.py), one process on one device: bf16 autocast on
-the card and float32 on the CPU unless ``precision`` says otherwise, the
-input uploaded as uint8 unless ``ship='float32'``. Usage mirrors the
-reference preset names::
+src/margipose/bin/train_3d.py): bf16 autocast on the card and float32 on
+the CPU unless ``precision`` says otherwise, the input uploaded as uint8
+unless ``ship='float32'``, or, with ``device_aug=True``, the raw uint8 frames
+uploaded with each example's affine and colour parameters and augmented on
+the device (``device_aug_canvas=N``: crop-ship onto an NxN canvas). Usage
+mirrors the reference preset names::
 
     python -m margipose_tpu_torch.bin.train_3d with margipose_model synthetic \\
         epochs=2 batch_size=8
     python -m margipose_tpu_torch.bin.train_3d --device cpu with margipose_model \\
         synthetic quick
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+margipose_tpu_torch.bin.train_3d ...``) each process trains on
+``cuda:LOCAL_RANK`` (gloo on the CPU) with DistributedDataParallel:
+``batch_size`` is the global batch, each process loads its share with its
+own loader seed, batch-norm statistics and the loss span the global batch,
+and process 0 writes the metrics, the config, the traces and the
+checkpoints.
 
 Each step's loss and predictions stay on the device; they are read back once
 per ``metrics_every`` window. A checkpoint of the full train state goes to
@@ -37,6 +47,7 @@ from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.bin.eval_3d import DeviceClock, set_float32_parity_mode
 from margipose_tpu_torch.checkpoint import load_model
 from margipose_tpu_torch.config import Experiment
+from margipose_tpu_torch.data.loader import DEVICE_FIELDS
 from margipose_tpu_torch.data.mpi_inf_3dhp import MpiInf3dDataset
 from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
@@ -46,6 +57,8 @@ from margipose_tpu_torch.models import (
     create_model,
     data_specs_for_desc,
 )
+from margipose_tpu_torch.ops.image import device_augment
+from margipose_tpu_torch.parallel import mesh
 from margipose_tpu_torch.parallel.precision import resolve_dtype
 from margipose_tpu_torch.train import checkpoint as ckpt
 from margipose_tpu_torch.train.helpers import (
@@ -116,8 +129,12 @@ ex.add_config(
                               # on the card, float32 on the CPU
     profile_steps=0,          # >0: torch.profiler trace of that many batches of
                               # epoch 0 to <out_dir>/<id>/profile/trace.json
-    device_aug=False,         # not ported yet (see NOT_PORTED)
-    device_aug_canvas=0,      # not ported yet (see NOT_PORTED)
+    device_aug=False,         # ship raw uint8 frames + affine/colour params and
+                              # augment on the device (ops/image.device_augment)
+    device_aug_canvas=0,      # device_aug: 0 ships full frames on the sources'
+                              # largest fixed raw size (else 768x768); N>0
+                              # crop-ships each example's source region
+                              # letterboxed onto an NxN canvas
     prefetch_depth=2,         # batches uploaded ahead of the step that uses them
     ship='uint8',             # host->device input encoding: 'uint8' requantises
                               # the input to its exact source pixels (lossless,
@@ -125,49 +142,61 @@ ex.add_config(
                               # which differs from the host's normalisation at
                               # the last ulp; 'float32' uploads the host tensor.
                               # 'uint8' under either precision, as in JAX
-                              # (eval's --ship auto keeps float32 for float32)
+                              # (eval's --ship auto keeps float32 for float32).
+                              # Ignored under device_aug (raw frames ship as
+                              # uint8)
 )
 
-# Keys of the JAX bin whose non-default values this port does not run yet:
-# (key, is the value ported?, where ROADMAP.md queues it).
-NOT_PORTED = [
-    ('device_aug', lambda v: not v, 'section 1, on-device augmentation'),
-    ('device_aug_canvas', lambda v: not v, 'section 1, on-device augmentation'),
-]
-
-
-def check_ported(cfg: dict) -> None:
-    """Raise NotImplementedError for a config value this slice does not run:
-    nothing is silently ignored."""
-    for key, ported, item in NOT_PORTED:
-        if not ported(cfg[key]):
-            raise NotImplementedError(
-                f'{key}={cfg[key]!r} is not ported to margipose_tpu_torch yet '
-                f'(ROADMAP.md {item})')
+# dtype of each uploaded field but the input (data/loader.DEVICE_FIELDS)
+_FIELD_DTYPES = {'target': np.float32, 'joint_mask': np.float32, 'valid_depth': np.int64,
+                 'raw_image': np.uint8, 'aug_affine': np.float32, 'aug_colour': np.float32}
 
 
 def device_prefetch(loader, device, depth=2, ship_specs=None):
     """(host batch, device batch) pairs, each upload enqueued up to ``depth``
     - 1 batches ahead of the step that uses it. The device batch holds the
-    input as NCHW float32, the target, joint mask and valid_depth. With
-    ``ship_specs`` (an ``ImageSpecs``) the input goes up as uint8 pixels
-    (``requantize``) and is renormalised on the device."""
+    batch's ``DEVICE_FIELDS``: the input as NCHW float32 (with ``ship_specs``,
+    an ``ImageSpecs``, it goes up as uint8 pixels and is renormalised on the
+    device), the target, joint mask and valid_depth, and under device
+    augmentation the raw uint8 NHWC frames, the [B,3,3] affines and the
+    [B,4] colour parameters in place of the input."""
     queue = collections.deque()
     for batch in loader:
-        queue.append((batch, {
-            'input': device_input(batch['input'], device, ship_specs),
-            'target': to_device(np.asarray(batch['target'], np.float32), device),
-            'joint_mask': to_device(np.asarray(batch['joint_mask'], np.float32), device),
-            'valid_depth': to_device(np.asarray(batch['valid_depth'], np.int64), device),
-        }))
+        uploaded = {}
+        for key in DEVICE_FIELDS:
+            if key not in batch:
+                continue
+            if key == 'input':
+                uploaded[key] = device_input(batch[key], device, ship_specs)
+            else:
+                uploaded[key] = to_device(
+                    np.ascontiguousarray(batch[key], _FIELD_DTYPES[key]), device)
+        queue.append((batch, uploaded))
         if len(queue) >= max(depth, 1):
             yield queue.popleft()
     yield from queue
 
 
+def make_aug_step(input_specs):
+    """``aug_step(raw, affine, colour)``: raw uint8 [B,H,W,3] frames -> the
+    normalised NCHW float32 model input, warped by each example's affine to
+    the input size and colour-jittered (``ops/image.device_augment``), as the
+    JAX bin's jitted ``aug_step``."""
+    h, w = input_specs.height, input_specs.width
+    mean = tuple(input_specs.mean) if input_specs.mean is not None else (0., 0., 0.)
+    std = tuple(input_specs.stddev) if input_specs.stddev is not None else (1., 1., 1.)
+
+    def aug_step(raw, affine, colour):
+        x = raw.to(torch.float32) / 255.0
+        x = device_augment(x, affine, h, w, colour[:, 0], colour[:, 1], colour[:, 2],
+                           colour[:, 3], mean, std)
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    return aug_step
+
+
 def run_training(cfg: dict, device='cuda') -> dict:
     device = resolve_device(device)
-    check_ported(cfg)
     cfg = dict(cfg)
     if cfg['precision'] is None:
         cfg['precision'] = 'bfloat16' if device.type == 'cuda' else 'float32'
@@ -178,9 +207,14 @@ def run_training(cfg: dict, device='cuda') -> dict:
     init_algorithms(deterministic=cfg['deterministic'])
     if compute_dtype == torch.float32:
         set_float32_parity_mode()
-    print(f"Precision: {cfg['precision']}; input upload: {cfg['ship']}")
+    upload = ('raw uint8 frames, augmented on the device' if cfg['device_aug']
+              else cfg['ship'])
+    print(f"Precision: {cfg['precision']}; input upload: {upload}")
 
     experiment_id = cfg['experiment_id'] or datetime.datetime.now().strftime('%Y%m%d-%H%M%S%f')
+    if not cfg['experiment_id']:
+        # every process writes (or waits on) one directory: process 0's
+        experiment_id = mesh.broadcast_object(experiment_id)
     exp_out_dir = None
     if cfg['out_dir']:
         exp_out_dir = path.join(cfg['out_dir'], experiment_id)
@@ -216,15 +250,25 @@ def run_training(cfg: dict, device='cuda') -> dict:
     MpiInf3dDataset.preserve_root_joint_at_univ_scale = \
         cfg['preserve_root_joint_at_univ_scale']
     data_specs = data_specs_for_desc(model_desc)
-    ship_specs = data_specs.input_specs if cfg['ship'] == 'uint8' else None
+    # under device_aug the frames ship as raw uint8 already
+    ship_specs = (data_specs.input_specs
+                  if cfg['ship'] == 'uint8' and not cfg['device_aug'] else None)
+    aug_step = make_aug_step(data_specs.input_specs) if cfg['device_aug'] else None
+    # each process loads batch_size / process_count rows with its own seed
+    n_proc = mesh.process_count()
+    assert cfg['batch_size'] % n_proc == 0, (
+        f"batch_size {cfg['batch_size']} must divide over {n_proc} processes")
+    local_batch = cfg['batch_size'] // n_proc
+    loader_seed = cfg['seed'] + 1021 * mesh.process_index()
     train_loader = create_train_dataloader(
-        cfg['train_datasets'], data_specs, cfg['batch_size'], cfg['train_examples'],
-        cfg['use_aug'], num_workers=cfg['num_workers'], seed=cfg['seed'])
+        cfg['train_datasets'], data_specs, local_batch, cfg['train_examples'] // n_proc,
+        cfg['use_aug'], num_workers=cfg['num_workers'], seed=loader_seed,
+        device_aug=cfg['device_aug'], device_aug_canvas=cfg['device_aug_canvas'])
     val_loader = None
     if cfg['val_datasets']:
         val_loader = create_val_dataloader(
-            cfg['val_datasets'], data_specs, cfg['batch_size'], cfg['val_examples'],
-            num_workers=cfg['num_workers'], seed=cfg['seed'])
+            cfg['val_datasets'], data_specs, local_batch, cfg['val_examples'] // n_proc,
+            num_workers=cfg['num_workers'], seed=loader_seed)
 
     # ---- Optimiser ----
     steps_per_epoch = len(train_loader)
@@ -241,9 +285,12 @@ def run_training(cfg: dict, device='cuda') -> dict:
     eval_step = make_eval_step(pixelwise_loss, compute_dtype) if val_loader else None
 
     # ---- Reporting ----
-    tel = make_train_reporter(with_val=val_loader is not None, out_dir=exp_out_dir)
-    if exp_out_dir:
-        with open(path.join(exp_out_dir, 'config.json'), 'w') as f:
+    # every process shares exp_out_dir (checkpoint saves are collective), but
+    # the file sinks, config.json, traces and image grids are process 0's
+    file_out_dir = exp_out_dir if mesh.process_index() == 0 else None
+    tel = make_train_reporter(with_val=val_loader is not None, out_dir=file_out_dir)
+    if file_out_dir:
+        with open(path.join(file_out_dir, 'config.json'), 'w') as f:
             json.dump(cfg, f, indent=2, sort_keys=True, default=str)
 
     start_epoch = int(resume_meta.get('epoch', 0)) if resume_meta else 0
@@ -264,7 +311,7 @@ def run_training(cfg: dict, device='cuda') -> dict:
                 val_loader.set_epoch(epoch)
 
             step_seconds = do_training_pass(cfg, state, train_step, tel, train_loader, device,
-                                            exp_out_dir, ship_specs)
+                                            file_out_dir, ship_specs, aug_step)
             if val_loader is not None:
                 do_validation_pass(cfg, state, eval_step, tel, val_loader, device, ship_specs)
 
@@ -328,7 +375,7 @@ def _host_metrics(batch, dataset, host_preds, tel, prefix):
 
 
 def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir,
-                     ship_specs=None):
+                     ship_specs=None, aug_step=None):
     """One epoch of train steps. Returns each step's seconds on the device
     (CUDA events on the card, the host clock on the CPU).
 
@@ -383,6 +430,10 @@ def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir,
         if item is None:
             break
         batch, device_batch = item
+        if aug_step is not None:
+            device_batch['input'] = aug_step(device_batch.pop('raw_image'),
+                                             device_batch.pop('aug_affine'),
+                                             device_batch.pop('aug_colour'))
         tel['data_load_time'].add(load_s)
         window_load_s += load_s
         start = clock.mark()
@@ -397,6 +448,9 @@ def do_training_pass(cfg, state, train_step, tel, loader, device, exp_out_dir,
                 host_preds = metrics['pred'].cpu().numpy()
                 _host_metrics(batch, loader.dataset, host_preds, tel, 'train')
             if not vis_done and exp_out_dir:
+                if aug_step is not None:  # the input exists on the device only
+                    batch = dict(batch, input=device_batch['input'].permute(0, 2, 3, 1).cpu()
+                                 .numpy())
                 images = visualise_predictions(host_preds, batch, loader.dataset)
                 save_image_grid(images, path.join(exp_out_dir, 'train_examples.png'))
                 vis_done = True
@@ -463,8 +517,18 @@ def parse_args(argv):
 
 
 def main(argv=None):
+    """Parse the arguments and train. Launched by torchrun, the process
+    joins the process group of torchrun's environment first and leaves it
+    at the end."""
     args, rest = parse_args(sys.argv[1:] if argv is None else argv)
-    return run_training(ex.parse(rest), device=args.device)
+    cfg = ex.parse(rest)
+    joined = not mesh.group_active()
+    device = mesh.init_from_env(resolve_device(args.device))
+    try:
+        return run_training(cfg, device=device)
+    finally:
+        if joined:
+            mesh.shutdown()
 
 
 if __name__ == '__main__':

@@ -56,7 +56,20 @@ def as_rgb_array(img) -> np.ndarray:
 
 
 class PoseDataset(ABC):
+    # On-device augmentation: when ``device_aug`` is set, samples carry the
+    # raw uint8 frame + the composed affine + colour params instead of a
+    # host-warped 'input'; the trainer applies ops.image.device_augment to
+    # the whole batch on the device. Variable-size sources (mpii, h36m) are
+    # letterboxed onto the fixed ``device_aug_canvas`` with the placement
+    # scale folded into the affine, so every dataset in a mixed recipe
+    # ships one static raw shape.
+    device_aug = False
     raw_size = None  # (height, width) of raw frames, when fixed
+    device_aug_canvas = None  # (height, width) raw canvas; set by the
+    #                           loader factory (train/helpers.py); defaults
+    #                           to raw_size for fixed-size sources
+    device_aug_crop = False  # crop-ship mode: ship only the affine's
+    #                          source region letterboxed onto the canvas
 
     def __init__(self, data_specs: DataSpecs):
         self.data_specs = data_specs
@@ -94,6 +107,73 @@ class PoseDataset(ABC):
         seed = np.random.SeedSequence(
             [self._aug_seed, *ordinal, int(index)]).generate_state(1)[0]
         return np.random.RandomState(seed)
+
+    def device_aug_fields(self, ctx: "TransformerContext", orig_image) -> dict:
+        """Sample fields for the on-device augmentation path.
+
+        Two shipping modes, chosen by the loader factory:
+
+        * **full-frame** (``device_aug_crop`` False): frames matching the
+          canvas pass through untouched (the mpi3d 768px case). Smaller
+          frames are zero-padded top-left — exact: the pad pixels are the
+          same zeros the host warp's out-of-bounds fill produces. Larger
+          frames are bilinearly downscaled to fit (aspect preserved).
+        * **crop-ship** (``device_aug_crop`` True): the device warp only
+          samples the affine's source region (the crop around the person),
+          so the loader crops the frame to that bbox (a memcpy — no
+          resample) and letterboxes the crop onto a SMALL canvas. Shipped
+          bytes drop from frame-size to canvas-size uint8 — below even the
+          host-aug path's warped float32 — which matters at host-to-device
+          copy rates.
+
+        In both modes every geometric placement (crop offset, letterbox
+        scale) is folded into the shipped affine: with ``out = A @ orig``,
+        a crop at offset t gives ``orig = crop + t``, and a letterbox scale
+        S gives ``crop = S^-1 @ canvas``, so ``A' = A @ T(t) @ S^-1`` and
+        the device warp is unchanged. Downscale (when the source region
+        exceeds the canvas) costs one extra resample versus the host path
+        (full aug pipeline reference: src/margipose/data/__init__.py:97-108;
+        variable-size MPII sources
+        reference: src/margipose/data/mpii/__init__.py:170-198).
+        """
+        arr = as_rgb_array(orig_image)
+        canvas = self.device_aug_canvas or self.raw_size
+        assert canvas is not None, (
+            'device_aug needs device_aug_canvas (set by the loader factory) '
+            'or a fixed raw_size')
+        ch, cw = canvas
+        affine = np.eye(3, dtype=np.float32)
+        a = np.asarray(ctx.affine, np.float32)
+        affine[:a.shape[0]] = a
+
+        if getattr(self, 'device_aug_crop', False):
+            arr, affine = _crop_to_affine_source(
+                arr, affine, ctx.opts['out_width'], ctx.opts['out_height'])
+
+        h, w = arr.shape[:2]
+        if (h, w) != (ch, cw):
+            sx = sy = 1.0
+            if h > ch or w > cw:
+                import PIL.Image
+
+                s = min(ch / h, cw / w)
+                nh = max(1, int(round(h * s)))
+                nw = max(1, int(round(w * s)))
+                arr = np.asarray(PIL.Image.fromarray(arr).resize(
+                    (nw, nh), PIL.Image.BILINEAR))
+                sx, sy = nw / w, nh / h
+            padded = np.zeros((ch, cw, 3), np.uint8)
+            padded[:arr.shape[0], :arr.shape[1]] = arr
+            arr = padded
+            if sx != 1.0 or sy != 1.0:
+                affine = (affine @ np.diag([1.0 / sx, 1.0 / sy, 1.0])
+                          ).astype(np.float32)
+        o = ctx.opts
+        colour = np.asarray([o.get('brightness', 1.0), o.get('contrast', 1.0),
+                             o.get('saturation', 1.0), o.get('hue', 0.0)],
+                            np.float32)
+        return {'raw_image': np.ascontiguousarray(arr),
+                'aug_affine': affine, 'aug_colour': colour}
 
     # ------------------------------------------------------------------ #
     # Sampling
@@ -208,6 +288,31 @@ class PoseDataset(ABC):
     @abstractmethod
     def __getitem__(self, index):
         ...
+
+
+def _crop_to_affine_source(arr, affine, out_width, out_height, margin=2):
+    """Crop ``arr`` to the region the inverse affine samples, folding the
+    crop offset into the affine.
+
+    The output square's corners map through A^-1 to the source quad; its
+    bbox (plus a bilinear margin, clipped to the frame) bounds every pixel
+    the warp can read. Returns (cropped array, updated 3x3 affine).
+    """
+    inv = np.linalg.inv(affine.astype(np.float64))
+    corners = np.array([[0.0, 0.0, 1.0], [out_width, 0.0, 1.0],
+                        [0.0, out_height, 1.0], [out_width, out_height, 1.0]])
+    src = corners @ inv.T  # affine: homogeneous w stays 1
+    xs, ys = src[:, 0], src[:, 1]
+    h, w = arr.shape[:2]
+    x0 = int(np.clip(np.floor(xs.min()) - margin, 0, max(w - 1, 0)))
+    y0 = int(np.clip(np.floor(ys.min()) - margin, 0, max(h - 1, 0)))
+    x1 = int(np.clip(np.ceil(xs.max()) + margin, x0 + 1, w))
+    y1 = int(np.clip(np.ceil(ys.max()) + margin, y0 + 1, h))
+    cropped = arr[y0:y1, x0:x1]
+    # orig = crop + (x0, y0)  =>  A' = A @ T(x0, y0)
+    t = np.eye(3, dtype=np.float64)
+    t[0, 2], t[1, 2] = x0, y0
+    return cropped, (affine.astype(np.float64) @ t).astype(np.float32)
 
 
 def derive_epoch_rng(seed, epoch) -> np.random.RandomState:

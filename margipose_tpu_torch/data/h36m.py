@@ -3,9 +3,6 @@
 (reference: src/margipose/data/h36m/__init__.py:23-357). Reads per-sequence
 ``annot.h5`` files with pose/2d, pose/3d, pose/3d-univ, intrinsics, camera,
 frame, subject, action, subaction datasets.
-
-The port's copy of ``margipose_tpu/data/h36m.py``, with the host
-augmentation only.
 """
 
 from __future__ import annotations
@@ -197,7 +194,9 @@ class H36MDataset(PoseDataset):
         out_height = self.data_specs.input_specs.height
 
         ctx = self.create_transformer_context(transform_opts)
-        camera_int, img, joints3d = ctx.transform(orig_camera, orig_image, orig_skel)
+        use_device_aug = self.device_aug and not self.multicrop
+        host_image = None if use_device_aug else orig_image
+        camera_int, img, joints3d = ctx.transform(orig_camera, host_image, orig_skel)
 
         z_ref = joints3d[self.skeleton_desc.root_joint_id, 2]
         target = self.skeleton_normaliser.normalise_skeleton(
@@ -213,7 +212,10 @@ class H36MDataset(PoseDataset):
             'transform_opts': transform_opts,
             'joint_mask': np.ones(target.shape[-2], dtype=np.float32),
         }
-        if img is not None:
+        if use_device_aug and orig_image is not None:
+            # variable-size frames letterboxed onto the shared canvas
+            sample.update(self.device_aug_fields(ctx, orig_image))
+        elif img is not None:
             sample['input'] = self.input_to_tensor(img)
         return sample
 

@@ -2,8 +2,8 @@
 
 Replaces the reference's multi-process torch DataLoader
 (reference: src/margipose/data/__init__.py:193-232) with a thread-pool
-pipeline producing fixed-shape NHWC numpy batches. The eval bin
-(``margipose_tpu_torch.bin.eval_3d``) uploads them to the device.
+pipeline producing fixed-shape NHWC numpy batches. The bins upload their
+``DEVICE_FIELDS`` to the device.
 """
 
 from __future__ import annotations
@@ -12,6 +12,13 @@ import itertools
 from concurrent.futures import ThreadPoolExecutor
 
 from margipose_tpu_torch.data.base import SequentialSampler, collate, set_aug_ordinal
+
+# Batch fields shipped to the device; everything else stays host-side for
+# the eval/untransform paths. The raw_image/aug_* fields exist only in the
+# on-device-augmentation mode (PoseDataset.device_aug).
+DEVICE_FIELDS = ('input', 'target', 'joint_mask', 'valid_depth',
+                 'raw_image', 'aug_affine', 'aug_colour')
+
 
 class DataLoader:
     def __init__(self, dataset, batch_size=1, sampler=None, drop_last=False,

@@ -1,9 +1,6 @@
 """Mixed multi-dataset training with round-robin balanced sampling.
 
 (reference: src/margipose/data/mixed.py:6-110)
-
-The port's copy of ``margipose_tpu/data/mixed.py``, without the on-device
-augmentation properties.
 """
 
 from __future__ import annotations
@@ -65,8 +62,8 @@ class MixedPoseDataset(PoseDataset):
         self.length = sum(self.dataset_lengths)
         self.balanced_sampling = balanced_sampling
         self.seed = seed
-        # shared fixed raw frame size (eg. mpi3d-trainval = mpi3d-train +
-        # mpi3d-val at 768px)
+        # shared fixed raw frame size enables on-device augmentation for the
+        # combination (eg. mpi3d-trainval = mpi3d-train + mpi3d-val at 768px)
         sizes = {d.raw_size for d in datasets}
         self.raw_size = sizes.pop() if len(sizes) == 1 else None
 
@@ -113,16 +110,45 @@ class MixedPoseDataset(PoseDataset):
     def to_canonical_skeleton(self, skel):
         return self.datasets[0].to_canonical_skeleton(skel)
 
+    @property
+    def device_aug(self):
+        return all(d.device_aug for d in self.datasets)
+
+    @device_aug.setter
+    def device_aug(self, value):
+        for d in self.datasets:
+            d.device_aug = value
+
+    @property
+    def device_aug_canvas(self):
+        canvases = {d.device_aug_canvas for d in self.datasets}
+        return canvases.pop() if len(canvases) == 1 else None
+
+    @device_aug_canvas.setter
+    def device_aug_canvas(self, value):
+        for d in self.datasets:
+            d.device_aug_canvas = value
+
+    @property
+    def device_aug_crop(self):
+        return all(d.device_aug_crop for d in self.datasets)
+
+    @device_aug_crop.setter
+    def device_aug_crop(self, value):
+        for d in self.datasets:
+            d.device_aug_crop = value
+
     def __len__(self):
         return self.length
 
-    # Fields common to every source dataset. Dataset-specific extras
-    # (frame_ref, mpii's normalize, ...) are dropped: collate takes its key
-    # set from a batch's first sample, so a key present in only one source
-    # would crash mixed batches. (The JAX package also passes the on-device
-    # augmentation fields raw_image/aug_*, which the port does not make yet.)
+    # Fields common to every source dataset in both augmentation modes —
+    # 'input' for host-aug, raw_image/aug_* for device-aug. Dataset-specific
+    # extras (frame_ref, mpii's normalize, ...) are dropped: collate takes
+    # its key set from a batch's first sample, so a key present in only one
+    # source would crash mixed batches.
     _PASS_FIELDS = ('valid_depth', 'original_skel', 'camera_intrinsic',
-                    'camera_extrinsic', 'target', 'joint_mask', 'input')
+                    'camera_extrinsic', 'target', 'joint_mask',
+                    'input', 'raw_image', 'aug_affine', 'aug_colour')
 
     def __getitem__(self, index):
         dataset_index, example_index = self._decompose_index(index)

@@ -5,9 +5,6 @@ src/margipose/data/mpi_inf_3dhp/common.py:11-136). Consumes the processed
 layout written by ``margipose_preprocess_mpi3d``: per-sequence
 ``metadata.h5`` (interesting frames, universal scale, joints3d),
 ``camera.calibration``, and extracted JPEG frames.
-
-The port's copy of ``margipose_tpu/data/mpi_inf_3dhp.py``, with the host
-augmentation only: the on-device augmentation branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -472,7 +469,9 @@ class MpiInf3dDataset(PoseDataset):
         out_height = self.data_specs.input_specs.height
 
         ctx = self.create_transformer_context(transform_opts)
-        camera_int, img, joints3d = ctx.transform(orig_camera, orig_image, orig_skel)
+        use_device_aug = self.device_aug and not self.multicrop
+        host_image = None if use_device_aug else orig_image
+        camera_int, img, joints3d = ctx.transform(orig_camera, host_image, orig_skel)
 
         z_ref = joints3d[self.skeleton_desc.root_joint_id, 2]
         target = self.skeleton_normaliser.normalise_skeleton(
@@ -489,7 +488,9 @@ class MpiInf3dDataset(PoseDataset):
             'transform_opts': transform_opts,
             'joint_mask': np.ones(target.shape[-2], dtype=np.float32),
         }
-        if img is not None:
+        if use_device_aug and orig_image is not None:
+            sample.update(self.device_aug_fields(ctx, orig_image))
+        elif img is not None:
             sample['input'] = self.input_to_tensor(img)
         return sample
 

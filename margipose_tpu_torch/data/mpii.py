@@ -6,9 +6,6 @@ reimplements that capability surface, reading the widely-used stacked-
 hourglass-style h5 annotation files (``annot/{train,valid,test}.h5`` with
 center/scale/part/visible/normalize/imgname) from a data directory also
 containing ``images/``.
-
-The port's copy of ``margipose_tpu/data/mpii.py``, with the host
-augmentation only.
 """
 
 from __future__ import annotations
@@ -233,7 +230,9 @@ class MpiiDataset(PoseDataset):
         orig_target = lifted
 
         ctx = self.create_transformer_context(transform_opts)
-        camera_int, img, part_coords = ctx.transform(orig_camera, orig_image, orig_target)
+        use_device_aug = self.device_aug and not getattr(self, 'multicrop', False)
+        host_image = None if use_device_aug else orig_image
+        camera_int, img, part_coords = ctx.transform(orig_camera, host_image, orig_target)
 
         z_ref = part_coords[self.skeleton_desc.root_joint_id, 2]
         part_coords = self.skeleton_normaliser.normalise_skeleton(
@@ -261,8 +260,13 @@ class MpiiDataset(PoseDataset):
             'transform_opts': transform_opts,
             'original_skel': orig_target,
             'target': part_coords.astype(np.float32),
-            'input': self.input_to_tensor(img),
         }
+        if use_device_aug:
+            # variable-size MPII frames are letterboxed onto the shared
+            # canvas inside device_aug_fields
+            sample.update(self.device_aug_fields(ctx, orig_image))
+        else:
+            sample['input'] = self.input_to_tensor(img)
         return sample
 
     def to_canonical_skeleton_public(self, skel):

@@ -124,7 +124,9 @@ class SyntheticPoseDataset(PoseDataset):
         out_w = self.data_specs.input_specs.width
         out_h = self.data_specs.input_specs.height
         ctx = self.create_transformer_context(transform_opts)
-        camera_int, img, joints3d = ctx.transform(orig_camera, orig_image, orig_skel)
+        use_device_aug = self.device_aug and not self.multicrop
+        host_image = None if use_device_aug else orig_image
+        camera_int, img, joints3d = ctx.transform(orig_camera, host_image, orig_skel)
         z_ref = joints3d[self.skeleton_desc.root_joint_id, 2]
         target = self.skeleton_normaliser.normalise_skeleton(
             joints3d, z_ref, camera_int, out_h, out_w)
@@ -138,7 +140,9 @@ class SyntheticPoseDataset(PoseDataset):
             'transform_opts': transform_opts,
             'joint_mask': np.ones(target.shape[-2], dtype=np.float32),
         }
-        if img is not None:
+        if use_device_aug and orig_image is not None:
+            sample.update(self.device_aug_fields(ctx, orig_image))
+        elif img is not None:
             sample['input'] = self.input_to_tensor(img)
         return sample
 

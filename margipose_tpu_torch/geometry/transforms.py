@@ -16,7 +16,8 @@ around a single composed affine:
   * The image is resampled once (bilinear) with the composed affine, on the
     host by the port's native host ops (``margipose_tpu_torch.native``, the
     JAX package's library, copied) or, under ``MARGIPOSE_DISABLE_NATIVE``,
-    by PIL. (The JAX package's on-device augmentation is not ported yet.)
+    by PIL; or, with ``device_aug``, on the device by ``ops/image.py`` from
+    the raw frame and ``A`` (``data/base.PoseDataset.device_aug_fields``).
 
 This factoring is mathematically equivalent to the reference's staged
 camera/point transforms: the normalised targets, the transformed camera's

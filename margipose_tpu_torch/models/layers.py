@@ -11,10 +11,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from margipose_tpu_torch.parallel import mesh
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode ``running_var`` takes in the biased
-    batch variance, as the JAX package's BatchNorm (flax) does.
+    batch variance, as the JAX package's BatchNorm (flax) does, and whose
+    train-mode statistics span the global batch while a process group is
+    active (``parallel/mesh.py``), as flax's do under the JAX package's
+    shard_map steps (``axis_name`` from ``current_shard_axis()``).
 
     Both frameworks normalise with the biased batch variance; torch folds the
     unbiased one into ``running_var``, a factor n/(n-1) with n = B*H*W per
@@ -26,19 +31,53 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if mesh.group_active():
+            return self._global_forward(x)
         old = self.running_var.clone()
         out = super().forward(x)  # updates the stats and num_batches_tracked
-        if self.momentum is None:  # cumulative average, as torch computes it
-            keep = 1.0 - 1.0 / self.num_batches_tracked.to(old.dtype)
-        else:
-            keep = 1.0 - self.momentum
         n = x.numel() // x.shape[1]
         # through .data: autograd saved running_var with the batch-norm node
         # (its train-mode backward never reads it), and an in-place update of
         # the tracked tensor would fail the saved-version check
         var = self.running_var.data
-        var.sub_((var - keep * old) / n)
+        var.sub_((var - self._keep() * old) / n)
         return out
+
+    def _keep(self):
+        """1 - the EMA factor of this update (after num_batches_tracked's
+        increment), as torch computes it."""
+        if self.momentum is None:  # cumulative average
+            return 1.0 - 1.0 / self.num_batches_tracked.to(self.running_var.dtype)
+        return 1.0 - self.momentum
+
+    def _global_forward(self, x):
+        """Train-mode batch norm over every process's rows. Per channel,
+        [sum, sum of squares] and the row count go through one differentiable
+        all-reduce (its backward all-reduces the gradients, so each process's
+        input gradient has the other processes' terms); then flax's one-pass
+        statistics, mean E[x] and biased variance E[x^2] - E[x]^2 in float32,
+        normalise the input and are folded into the running stats. Stock
+        ``nn.SyncBatchNorm`` refuses CPU tensors and folds the unbiased
+        variance."""
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), float(x.numel() // c), device=x.device)
+        stats = mesh.all_reduce_sum(
+            torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]))
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
+        scale = torch.rsqrt(var + self.eps)
+        shift = -mean * scale
+        if self.affine:
+            scale, shift = scale * self.weight, shift * self.weight + self.bias
+        out = xf * scale[:, None, None] + shift[:, None, None]
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            keep = self._keep()
+            self.running_mean.mul_(keep).add_((1.0 - keep) * mean.detach())
+            self.running_var.mul_(keep).add_((1.0 - keep) * var.detach())
+        return out.to(x.dtype)
 
 
 class BasicConv2d(nn.Module):

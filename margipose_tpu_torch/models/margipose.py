@@ -185,14 +185,20 @@ def _stage_components(out: ModelOutput, target_xyz, pixelwise_loss, sigma=1.0):
         yield pxy, pzy, pxz, cxy, xyz
 
 
-def margipose_masked_loss(out: ModelOutput, target, joint_mask, valid_depth,
-                          pixelwise_loss='jsd'):
-    """Per-example 3D/2D loss switch on ``valid_depth`` + masked mean over
-    joints (reference: src/margipose/bin/train_3d.py:126-142)."""
+def margipose_joint_losses(out: ModelOutput, target, valid_depth, pixelwise_loss='jsd'):
+    """Per-joint losses [B, J]: the 3D loss for rows with ``valid_depth`` 1,
+    the 2D loss for the others (reference: src/margipose/bin/train_3d.py:126-142)."""
     target_xyz = target[..., :3]
     losses_3d = losses_2d = 0.0
     for pxy, pzy, pxz, cxy, xyz in _stage_components(out, target_xyz, pixelwise_loss):
         losses_3d = losses_3d + pxy + pzy + pxz + euclidean_losses(xyz, target_xyz)
         losses_2d = losses_2d + pxy + euclidean_losses(cxy, target_xyz[..., :2])
-    losses = torch.where(valid_depth[:, None] == 1, losses_3d, losses_2d)
-    return average_loss(losses, joint_mask)
+    return torch.where(valid_depth[:, None] == 1, losses_3d, losses_2d)
+
+
+def margipose_masked_loss(out: ModelOutput, target, joint_mask, valid_depth,
+                          pixelwise_loss='jsd', distributed=False):
+    """``margipose_joint_losses``' masked mean over joints; over the global
+    batch with ``distributed`` (``ops/dsnt.average_loss``)."""
+    return average_loss(margipose_joint_losses(out, target, valid_depth, pixelwise_loss),
+                        joint_mask, distributed=distributed)

@@ -61,13 +61,34 @@ def euclidean_losses(actual: torch.Tensor, target: torch.Tensor) -> torch.Tensor
     return ((actual - target) ** 2).sum(-1).sqrt()
 
 
-def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None,
+                 distributed: bool = False) -> torch.Tensor:
     """Masked mean of per-location losses; the denominator is clipped at 1
-    so an all-masked batch gives 0 (reference: src/margipose/dsntnn.py:99-121)."""
+    so an all-masked batch gives 0 (reference: src/margipose/dsntnn.py:99-121).
+
+    ``distributed``: all-reduce the numerator and the denominator over the
+    active process group, so the result is the masked mean over the GLOBAL
+    batch, as the JAX package psums both under shard_map. The numerator's
+    all-reduce is differentiable: its backward sums the processes'
+    gradients, which DistributedDataParallel's averaging then divides back,
+    so the gradient is the global mean's even when the processes hold
+    different numbers of unmasked joints."""
     if mask is None:
-        return losses.sum() / max(float(losses.numel()), 1.0)
-    assert mask.shape == losses.shape, "mask must be the same size as losses"
-    return (losses * mask).sum() / mask.sum().clamp(min=1.0)
+        num = losses.sum()
+        denom = torch.tensor(max(float(losses.numel()), 1.0), dtype=losses.dtype,
+                             device=losses.device)
+    else:
+        assert mask.shape == losses.shape, "mask must be the same size as losses"
+        num = (losses * mask).sum()
+        denom = mask.sum()
+    if distributed:
+        from margipose_tpu_torch.parallel.mesh import all_reduce_sum
+
+        num = all_reduce_sum(num)
+        denom = all_reduce_sum(denom.detach())
+    if mask is not None:
+        denom = denom.clamp(min=1.0)
+    return num / denom
 
 
 def make_gauss(means: torch.Tensor, size, sigma, normalize: bool = True) -> torch.Tensor:

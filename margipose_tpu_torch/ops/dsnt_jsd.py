@@ -140,9 +140,10 @@ def dsnt_jsd_fwd(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
     p_ptrs, mu_ptrs = _pointers(heatmaps, mus)
     g, (b, j, h, w) = len(heatmaps), hm0.shape
     out = torch.empty((g, b * j, 4), dtype=torch.float32, device=hm0.device)
-    stream = torch.cuda.current_stream(hm0.device).cuda_stream
-    err = _lib().dsnt_jsd_fwd(p_ptrs, mu_ptrs, g, out.data_ptr(), b * j, h, w,
-                              gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma), stream)
+    with torch.cuda.device(hm0.device):  # launch on the tensors' card, not the current one
+        err = _lib().dsnt_jsd_fwd(p_ptrs, mu_ptrs, g, out.data_ptr(), b * j, h, w,
+                                  gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma),
+                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dsnt_jsd_fwd kernel launch failed: CUDA error {err}")
     dsnt_jsd_fwd.launches += 1
@@ -165,9 +166,10 @@ def dsnt_jsd_bwd(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
         raise ValueError(f"dsnt_jsd_bwd: grad is {tuple(grad.shape)} on {grad.device}, "
                          f"expected {(g, b * j, 4)} on {hm0.device}")
     dp = torch.empty((g, b, j, h, w), dtype=torch.float32, device=hm0.device)
-    stream = torch.cuda.current_stream(hm0.device).cuda_stream
-    err = _lib().dsnt_jsd_bwd(p_ptrs, mu_ptrs, g, grad.data_ptr(), dp.data_ptr(), b * j, h, w,
-                              gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma), stream)
+    with torch.cuda.device(hm0.device):
+        err = _lib().dsnt_jsd_bwd(p_ptrs, mu_ptrs, g, grad.data_ptr(), dp.data_ptr(), b * j, h,
+                                  w, gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma),
+                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dsnt_jsd_bwd kernel launch failed: CUDA error {err}")
     dsnt_jsd_bwd.launches += 1
@@ -180,8 +182,8 @@ def log_normal_mismatches(device: torch.device | str = "cuda") -> int:
     bit, counted on the card over all 2^32 bit patterns: 0 when the kernels'
     logs are ``logf``'s."""
     count = torch.zeros(1, dtype=torch.int32, device=device)
-    err = _lib().dsnt_jsd_log_check(count.data_ptr(),
-                                    torch.cuda.current_stream(count.device).cuda_stream)
+    with torch.cuda.device(count.device):
+        err = _lib().dsnt_jsd_log_check(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dsnt_jsd_log_check kernel launch failed: CUDA error {err}")
     return int(count.item())

@@ -41,7 +41,10 @@ def affine_warp(images: torch.Tensor, affines: torch.Tensor, out_height: int,
     if affines.shape[-2:] == (2, 3):
         bottom = affines.new_tensor([0.0, 0.0, 1.0]).expand(affines.shape[0], 1, 3)
         affines = torch.cat([affines, bottom], dim=-2)
-    inv = torch.linalg.inv(affines)  # input <- output
+    # input <- output, inverted in float64: a float32 inverse is off by an
+    # ulp of a coordinate as large as the frame (6.1e-5 px at 768 px), and
+    # the card's and the CPU's inverses round differently
+    inv = torch.linalg.inv(affines.double()).float()
 
     ys = torch.arange(out_height, dtype=torch.float32, device=images.device) + 0.5
     xs = torch.arange(out_width, dtype=torch.float32, device=images.device) + 0.5

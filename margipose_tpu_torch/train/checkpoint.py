@@ -1,7 +1,6 @@
 """Train-state checkpoints: save, crash-safe swap, restore.
 
-Counterpart of ``margipose_tpu/train/checkpoint.py:62-220``, single process.
-A checkpoint is a directory::
+Counterpart of ``margipose_tpu/train/checkpoint.py:62-220``. A checkpoint is a directory::
 
     <ckpt_dir>/state/train_state.pt   model state_dict, optimiser state, step
     <ckpt_dir>/meta.json              model_desc, epoch, train datasets
@@ -12,6 +11,12 @@ A save writes ``state.next`` and swaps it in with renames, keeping the
 previous ``state`` as ``state.old`` until the new one is on disk, so a
 process killed mid-save never loses the last good checkpoint: restore falls
 back to ``state.old``.
+
+Under a process group of several processes every process holds the same
+replicated state: all of them call ``save_checkpoint``, process 0 alone
+writes and swaps, fenced by barriers so that no process restores or saves
+again before the swap is done, and the save is synchronous (the JAX
+package's multi-host saves are collective and synchronous too).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import threading
 from os import path
 
 import torch
+
+from margipose_tpu_torch.parallel import mesh
 
 STATE_FILE = 'train_state.pt'
 
@@ -92,15 +99,25 @@ def save_checkpoint(ckpt_dir: str, state, model_desc: dict, extra: dict | None =
     tensors in place. With ``background=True`` the write and the swap run in
     a returned thread: join it before another save to the same directory and
     before relying on the checkpoint; ``join()`` re-raises what the save hit.
-    Returns that thread, or None when the save was synchronous."""
+    Returns that thread, or None when the save was synchronous. With
+    several processes, process 0 writes, between two barriers, and the save
+    is synchronous."""
     ckpt_dir = path.abspath(ckpt_dir)
-    payload = _to_host({'step': state.step, 'model': state.model.state_dict(),
-                        'optimiser': state.optimiser.state_dict()})
-    meta = {'model_desc': model_desc, **(extra or {})}
-    if background:
-        return _BackgroundSave(_write_and_swap, (ckpt_dir, payload, meta))
-    _write_and_swap(ckpt_dir, payload, meta)
-    return None
+    multi = mesh.process_count() > 1
+    if multi:
+        mesh.barrier()
+    thread = None
+    if mesh.process_index() == 0:
+        payload = _to_host({'step': state.step, 'model': state.model.state_dict(),
+                            'optimiser': state.optimiser.state_dict()})
+        meta = {'model_desc': model_desc, **(extra or {})}
+        if background and not multi:
+            thread = _BackgroundSave(_write_and_swap, (ckpt_dir, payload, meta))
+        else:
+            _write_and_swap(ckpt_dir, payload, meta)
+    if multi:
+        mesh.barrier()
+    return thread
 
 
 def _state_file(ckpt_dir: str) -> str:

@@ -1,9 +1,9 @@
 """Training helper factories.
 
 Counterpart of ``margipose_tpu/train/helpers.py:13-104`` (reference:
-src/margipose/train_helpers.py:15-105), without the on-device augmentation
-branch: several datasets per loader go through ``MixedPoseDataset``, each
-with its own augmentation seed.
+src/margipose/train_helpers.py:15-105): several datasets per loader go
+through ``MixedPoseDataset``, each with its own augmentation seed, and
+``device_aug`` picks the one raw canvas the whole recipe ships.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from margipose_tpu_torch.utils import draw_skeleton_2d
 
 
 def _create_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch,
-                       use_aug, num_workers=4, seed=None):
+                       use_aug, num_workers=4, seed=None, device_aug=False,
+                       device_aug_canvas=0):
     datasets = [
         get_dataset(name, data_specs, use_aug=use_aug,
                     # distinct per-source aug streams, derived from the one
@@ -27,6 +28,31 @@ def _create_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch
     ]
     if not datasets:
         raise ValueError('at least one dataset must be specified')
+    if device_aug:
+        # One static raw canvas for the whole (possibly mixed) recipe.
+        #
+        # device_aug_canvas > 0 selects CROP-SHIP mode: each example ships
+        # only the affine's source region letterboxed onto an NxN canvas
+        # (PoseDataset.device_aug_fields), cutting host->device bytes below
+        # even the host-aug path's warped float32.
+        #
+        # device_aug_canvas == 0 ships FULL frames: fixed-size sources
+        # (mpi3d 768px, synthetic) dictate the canvas and pass through
+        # pixel-exact; variable-size sources (mpii, h36m) are letterboxed
+        # onto it. 768px default matches the preprocessed mpi3d frame size
+        # when no source is fixed.
+        if device_aug_canvas:
+            canvas = (int(device_aug_canvas), int(device_aug_canvas))
+        else:
+            fixed = [d.raw_size for d in datasets if d.raw_size is not None]
+            if fixed:
+                canvas = (max(s[0] for s in fixed), max(s[1] for s in fixed))
+            else:
+                canvas = (768, 768)
+        for d in datasets:
+            d.device_aug = True
+            d.device_aug_canvas = canvas
+            d.device_aug_crop = bool(device_aug_canvas)
     dataset = datasets[0] if len(datasets) == 1 else MixedPoseDataset(datasets)
     return DataLoader(
         dataset,
@@ -38,9 +64,11 @@ def _create_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch
 
 
 def create_train_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch,
-                            use_aug=True, num_workers=4, seed=None):
+                            use_aug=True, num_workers=4, seed=None,
+                            device_aug=False, device_aug_canvas=0):
     return _create_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch,
-                              use_aug, num_workers, seed)
+                              use_aug, num_workers, seed, device_aug=device_aug,
+                              device_aug_canvas=device_aug_canvas)
 
 
 def create_val_dataloader(dataset_names, data_specs, batch_size, examples_per_epoch,

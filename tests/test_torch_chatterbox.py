@@ -52,6 +52,9 @@ from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_train_step import SCHEDULE, _assert_state_matches, _batch, _port_state, _torch_batch
 from test_torch_weights import port_init_as_jax, two_torch_threads  # noqa: F401
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.usefixtures('two_torch_threads')
 
 DESC = Default_Chatterbox_Desc

@@ -25,6 +25,9 @@ from margipose_tpu.train.torch_import import export_state_dict
 from test_torch_eval_bin import METRICS, _assert_tables_agree, _run_jax_eval
 from test_torch_weights import jax_margipose, port_init_as_jax, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope='module')
 def checkpoint(tmp_path_factory):

@@ -10,11 +10,15 @@ keys.
 import os
 
 import pytest
+import torch
 
 import margipose_tpu_torch.bin.eval_3d as eval_3d
 from margipose_tpu.data.fake_mpi3d import generate_fake_mpi3d
 from test_torch_dataset_eval import assert_bins_agree, checkpoint  # noqa: F401
 from test_torch_eval_bin import _run_jax_eval
+
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
 
 
 @pytest.fixture

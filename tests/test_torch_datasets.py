@@ -19,6 +19,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import margipose_tpu.data.get_dataset as jax_get_dataset
 import margipose_tpu.data.loader as jax_loader
@@ -36,6 +37,9 @@ from margipose_tpu_torch.data.mixed import MixedPoseDataset, RoundRobinSampler
 from margipose_tpu_torch.data.mpii import install_mpii_dataset
 from margipose_tpu_torch.geometry.camera import CameraIntrinsics
 from margipose_tpu_torch.models import data_specs_for_desc
+
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DESC = {'settings': {'input_size': 64}}

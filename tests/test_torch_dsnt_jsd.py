@@ -29,6 +29,9 @@ from margipose_tpu_torch.ops.dsnt_jsd import (
     log_normal_mismatches,
 )
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 # the modules, not the functions the ops packages re-export under that name
 jdsnt = importlib.import_module('margipose_tpu.ops.dsnt')
 tdsnt = importlib.import_module('margipose_tpu_torch.ops.dsnt')

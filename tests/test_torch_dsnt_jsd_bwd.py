@@ -30,6 +30,9 @@ from margipose_tpu_torch.ops.dsnt_jsd import (
     dsnt_jsd_plain,
 )
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 jdsnt = importlib.import_module('margipose_tpu.ops.dsnt')
 tdsnt = importlib.import_module('margipose_tpu_torch.ops.dsnt')
 

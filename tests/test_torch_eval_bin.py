@@ -20,6 +20,9 @@ import margipose_tpu_torch.bin.eval_3d as eval_3d
 from margipose_tpu.train.torch_import import export_state_dict
 from test_torch_weights import jax_margipose, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 METRICS = eval_3d.METRICS
 
 

@@ -19,6 +19,9 @@ from margipose_tpu_torch.data.specs import ImageSpecs, device_renormalize
 from margipose_tpu_torch.data.synthetic import SyntheticPoseDataset
 from margipose_tpu_torch.ops import image
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 MEAN, STD = ImageSpecs.IMAGENET_MEAN, ImageSpecs.IMAGENET_STDDEV
 

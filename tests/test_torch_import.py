@@ -22,6 +22,9 @@ from margipose_tpu.train.torch_import import (
     flax_path_to_torch_key,
 )
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 
 def _torch_res_block(in_ch, out_ch, kind):
     """Torch residual block with the reference's Sequential layout

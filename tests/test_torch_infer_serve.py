@@ -34,6 +34,9 @@ from margipose_tpu_torch.ops.dsnt import dsnt, flat_softmax
 from margipose_tpu_torch.ops.image import affine_warp
 from test_torch_weights import jax_margipose, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE = os.path.join(ROOT, 'resources', 'man_running.jpg')
 ATOL = 1e-4

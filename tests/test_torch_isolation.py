@@ -13,6 +13,9 @@ import torch
 import margipose_tpu_torch
 from margipose_tpu_torch import resolve_device
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'margipose_tpu')
 
@@ -38,7 +41,8 @@ def test_importing_every_port_module_loads_no_jax():
     for name in ('bin.eval_3d', 'bin.train_3d', 'bin.infer_single', 'bin.serve',
                  'bin.preprocess_mpi3d', 'ops.dsnt_jsd', 'ops.image', 'parallel.precision',
                  'data.mpi_inf_3dhp', 'data.mpi3d_raw', 'data.fake_mpi3d', 'data.mixed',
-                 'data.h36m', 'data.mpii', 'data.fakes', 'data.mpi3d_preprocess'):
+                 'data.h36m', 'data.mpii', 'data.fakes', 'data.mpi3d_preprocess',
+                 'parallel.mesh'):
         assert f'margipose_tpu_torch.{name}' in modules
     code = (
         'import importlib, sys\n'
@@ -48,7 +52,8 @@ def test_importing_every_port_module_loads_no_jax():
         'print(sorted(bad))\n'
     )
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300, env={**os.environ, 'PYTHONPATH': ROOT})
+                         text=True, timeout=300,
+                         env={**os.environ, 'PYTHONPATH': ROOT, 'OMP_NUM_THREADS': '1'})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == '[]'
 

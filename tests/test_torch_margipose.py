@@ -25,6 +25,9 @@ from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_fused
 from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_weights import jax_margipose, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 PLANES = ('xy_heatmaps', 'zy_heatmaps', 'xz_heatmaps')
 
 

@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import PIL.Image
 import pytest
+import torch
 
 import margipose_tpu.native as jax_native
 from margipose_tpu.geometry.camera import CameraIntrinsics as JaxCamera
@@ -33,6 +34,9 @@ from margipose_tpu_torch.geometry.transforms import (
     warp_image_pil,
 )
 from margipose_tpu_torch.ops import _build
+
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -226,7 +230,7 @@ def test_processes_racing_on_one_build_all_load_it(tmp_path):
             '                      __import__("numpy").eye(3), (4, 4))\n'
             'assert (out == 9).all()\n')
     procs = [subprocess.Popen([sys.executable, '-c', code, str(tmp_path)], cwd=ROOT,
-                              env={**os.environ, 'PYTHONPATH': ROOT},
+                              env={**os.environ, 'PYTHONPATH': ROOT, 'OMP_NUM_THREADS': '1'},
                               stderr=subprocess.PIPE, text=True) for _ in range(4)]
     for p in procs:
         _, err = p.communicate(timeout=120)

@@ -32,6 +32,9 @@ from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_train_step import _batch, _torch_batch
 from test_torch_weights import jax_margipose, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 SCHEDULE = dict(max_iters=10)
 
 

@@ -14,6 +14,7 @@ import shutil
 
 import h5py
 import numpy as np
+import torch
 import PIL.Image
 
 import margipose_tpu.data.mpi3d_preprocess as jax_pre
@@ -27,6 +28,9 @@ from margipose_tpu_torch.bin.preprocess_mpi3d import main as preprocess_main
 from margipose_tpu_torch.data.mpi_inf_3dhp import MpiInf3dDataset, MpiInf3dhpSkeletonDesc
 from margipose_tpu_torch.models import data_specs_for_desc
 from test_preprocess import _fake_annot
+
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
 
 
 def _h5_items(path):

@@ -17,6 +17,9 @@ import torch
 from margipose_tpu.train import schedules as jax_schedules
 from margipose_tpu_torch.train.schedules import make_optimiser, schedule_values
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 ALGORITHMS = ['1cycle', 'sgd_simple', 'sgd', 'nesterov', 'rmsprop']
 # milestones at 2 and 4 steps (epochs of 2 steps); 1cycle over 6 steps
 KWARGS = dict(max_iters=6, milestones=[1, 2], gamma=0.5, steps_per_epoch=2)

@@ -20,6 +20,9 @@ from margipose_tpu_torch.checkpoint import load_model
 from test_torch_train_bin import _argv
 from test_torch_weights import two_torch_threads  # noqa: F401
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.usefixtures('two_torch_threads')
 
 

@@ -30,6 +30,9 @@ from margipose_tpu_torch.data.mpi_inf_3dhp import MpiInf3dDataset
 from margipose_tpu_torch.models import create_model
 from test_torch_weights import small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DESC = "model_desc={'settings': {'n_stages': 1, 'input_size': 64}}"
 
@@ -110,7 +113,9 @@ def test_keys_ported_in_this_slice_run(monkeypatch, override):
                                  "val_datasets=['mpi3d-val']", override))
     assert result['step'] == 2 and np.isfinite(result['train_loss'])
     assert seen and set(seen) == {override.startswith('preserve_root')}
-    assert {key for key, _, _ in train_3d.NOT_PORTED} == {'device_aug', 'device_aug_canvas'}
+    # the last two keys left out, device_aug and device_aug_canvas, are ported
+    # too (tests/test_torch_device_aug.py): the bin keeps no list of them
+    assert not hasattr(train_3d, 'NOT_PORTED')
 
 
 def _cudnn_flags():

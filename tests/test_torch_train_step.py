@@ -42,6 +42,9 @@ from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_tra
 from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_weights import jax_margipose, small_desc
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 SCHEDULE = dict(max_iters=10)  # 1cycle: lr 0.1, momentum 0.9 at the first update
 
 

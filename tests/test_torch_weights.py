@@ -18,6 +18,9 @@ from margipose_tpu.train.torch_import import export_state_dict
 from margipose_tpu_torch.models import create_model
 from margipose_tpu_torch.weights import state_dict_from_jax, torch_keys
 
+# one intra-op thread a process: the suite runs six workers on an eight-core box
+torch.set_num_threads(1)
+
 
 def small_desc(n_stages=2, axis_permutation=True, input_size=64):
     return {'type': 'margipose', 'version': '6.0.1',
