@@ -112,12 +112,32 @@ Phases, each printing its own lines; any failure exits non-zero:
                    [ddp train trace]); bin.eval_3d --num-devices 1 against
                    plain eval, and --num-devices 2, which must exit with the JAX
                    bin's message on a one-card machine.
+ 21. cli           the margipose command (margipose_tpu_torch.bin.main) on
+                   the card: hyperparams, the LR range test, on the
+                   full-width flagship in float32 at batch 32, 8 iterations
+                   (both kernels once an iteration, lrs geometric from
+                   lr_min, losses finite, lr_curve.csv written, ms per
+                   iteration by CUDA events); the sweep card against CPU (2
+                   iterations at batch 2: losses rtol 1e-3, phase 9's L2
+                   rule on each iteration from a common state; the
+                   compounded shares, card and a 1-thread CPU run against
+                   the CPU, printed); eval through the dispatcher on phase 7's
+                   model-latest against bin.eval_3d.main; export_model -f
+                   native / torch (reload strict, equal outputs) and -f
+                   export (torch.export, reloaded on the card, within 1e-4
+                   of the eager forward, both timed at batch 1); gui on two
+                   synthetic examples of the main path's checkpoint (the
+                   forward card against CPU, the HTML report where
+                   matplotlib is installed; phase 7's checkpoint's gap
+                   printed);
+                   calc_dataloader_stats on synthetic-64; bench_loader where
+                   h5py is installed.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
 the result line {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result. The flagship's train paths run 4 steps; the
-later paths run 2-3 to keep the script near 5 minutes.
+later paths run 2-3 to keep the script near 7 minutes.
 """
 
 from __future__ import annotations
@@ -175,6 +195,7 @@ MPI3D_TRAIN_STEPS = 3      # the mpi3d preset's train path at batch 32
 DEVICE_AUG_STEPS = 3       # each on-device augmentation train path at batch 32
 CROP_CANVAS = 384          # crop-ship canvas of the device_aug_canvas paths
 DDP_STEPS = 3              # the train bin's steps under the NCCL process group
+HYPERPARAM_ITERS = 8       # the LR range test's iterations at batch 32
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -1911,6 +1932,329 @@ def distributed_phase(model, ckpt, nproc=1):
     return {'ddp_train': launches, f'eval_num_devices_{nproc}': eval_launches}
 
 
+def recording_results(module, name):
+    """Wrap ``module.name`` to record each call's result. Returns (the list
+    they go to, undo)."""
+    real, seen = getattr(module, name), []
+
+    def recording(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    setattr(module, name, recording)
+    return seen, lambda: setattr(module, name, real)
+
+
+def dispatch(*argv):
+    """``margipose_tpu_torch.bin.main``, the ``margipose`` command, on the card."""
+    from margipose_tpu_torch import bin as cli_bin
+
+    cli_bin.main(['margipose', '--device', 'cuda', *argv])
+
+
+def hyperparams_phase():
+    """Phase 21's kernel path: ``margipose hyperparams`` on the full-width
+    flagship, float32, batch 32, HYPERPARAM_ITERS iterations on synthetic-512:
+    both kernels once an iteration, lrs geometric from lr_min, losses finite,
+    the CSV written. Returns the launches."""
+    from margipose_tpu_torch.bin import hyperparam_search
+
+    out_dir = os.path.join(WORK, 'hyperparams')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lr_min, lr_max, iters = 1e-4, 1.0, HYPERPARAM_ITERS
+    seen, undo = recording_results(hyperparam_search, 'run_lr_range_test')
+    counters = reset_counts()
+    t0 = time.perf_counter()
+    try:
+        dispatch('hyperparams', 'with', 'margipose_model', 'synthetic', 'batch_size=32',
+                 f'max_iters={iters}', f'lr_min={lr_min}', f'lr_max={lr_max}',
+                 f'out_dir={out_dir}')
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    (out,) = seen
+    ran = len(out['step_seconds'])
+    expected = {'dsnt_jsd_fwd': ran, 'dsnt_jsd_bwd': ran}
+    lrs = np.geomspace(lr_min, lr_max, iters)
+    table = np.loadtxt(os.path.join(out['exp_dir'], 'lr_curve.csv'), delimiter=',', ndmin=2)
+    ms = [s * 1e3 for s in out['step_seconds']]
+    phase('cli', f'hyperparams, flagship float32 at batch 32: kernel launches {launches}, '
+                 f'expected {expected} ({ran} iterations of {iters}); {len(out["lrs"])} points '
+                 f'recorded, lr {out["lrs"][0]:.3e} .. {out["lrs"][-1]:.3e}, smoothed loss '
+                 f'{out["losses"][0]:.6f} .. {out["losses"][-1]:.6f}; lr_curve.csv '
+                 f'{table.shape[0]} rows')
+    phase('cli', f'hyperparams ms per iteration (CUDA events): first {ms[0]:.3f} (cuDNN\'s '
+                 f'algorithm search), then {", ".join(f"{m:.3f}" for m in ms[1:])}; '
+                 f'{wall:.1f} s wall for the subcommand (model, loader, iterations, CSV)')
+    if not (launches == expected and ran == iters and out['lrs']
+            and np.array_equal(out['lrs'], lrs[:len(out['lrs'])])
+            and all(math.isfinite(v) for v in out['losses'])
+            and np.array_equal(table, np.stack([out['lrs'], out['losses']], 1))):
+        raise AssertionError(f'hyperparams through the dispatcher: {launches}, {out}')
+    return launches
+
+
+def hyperparams_parity_phase(model):
+    """The sweep card against CPU, 2 iterations at batch 2 from ``model``'s
+    weights (raw losses, ema_beta=0): the two runs of run_lr_range_test,
+    losses within rtol 1e-3; then each iteration's update under phase 9's
+    L2 rule, card and CPU stepping from the same state (the CPU's weights
+    and momentum after the iterations before). Phase 9's rule holds one
+    step: over two compounding iterations float32 reordering alone moves
+    the stem's batch norms to most of it, which a third sweep measures (the
+    CPU at one thread against the CPU at its default threads: the same code,
+    sums in another order), so the compounded shares are printed, not
+    held."""
+    from margipose_tpu_torch.bin import hyperparam_search
+    from margipose_tpu_torch.bin.train_3d import device_prefetch
+    from margipose_tpu_torch.models import data_specs_for_desc
+    from margipose_tpu_torch.train.helpers import create_train_dataloader
+    from margipose_tpu_torch.train.steps import TrainState, make_train_step
+
+    cfg = hyperparam_search.ex.parse([
+        'with', 'margipose_model', 'synthetic', 'batch_size=2', 'max_iters=2', 'lr_min=1e-3',
+        'lr_max=1e-2', 'ema_beta=0.0', 'num_workers=0', 'out_dir='])
+    initial = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    runs = {}
+    threads = torch.get_num_threads()
+    for name, device, n_threads in (('card', 'cuda', threads), ('cpu', 'cpu', threads),
+                                    ('cpu1', 'cpu', 1)):
+        m = copy.deepcopy(model).to(device)
+        torch.set_num_threads(n_threads)
+        try:
+            out = hyperparam_search.run_lr_range_test(cfg, device=device, model=m)
+        finally:
+            torch.set_num_threads(threads)
+        runs[name] = (out['losses'], {k: v.detach().cpu().double()
+                                      for k, v in m.state_dict().items()})
+    (loss_gpu, gpu), (loss_cpu, cpu) = runs['card'], runs['cpu']
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_gpu, loss_cpu))
+    compounded = worst_update_share(gpu, cpu, initial)
+    floor = worst_update_share(runs['cpu1'][1], cpu, initial)
+    phase('cli', f'hyperparams card vs CPU, 2 iterations at batch 2: losses {loss_gpu} vs '
+                 f'{loss_cpu}, worst rel err {loss_rel:.3g} (rtol 1e-3); after both '
+                 f'iterations the worst parameter tensor at {compounded[0]:.4f} of the L2 rule '
+                 f'({compounded[1]}); the CPU at 1 thread against the CPU at {threads}: '
+                 f'{floor[0]:.4f} ({floor[1]}); compounded, neither held')
+    if not (len(loss_gpu) == len(loss_cpu) == 2 and loss_rel <= 1e-3):
+        raise AssertionError('the sweep\'s losses on the card disagree with the CPU\'s')
+
+    # the same iterations from a common state each: the sweep's loader,
+    # optimiser and train step, as run_lr_range_test composes them
+    lrs = hyperparam_search.sweep_lrs(cfg)
+    loader = create_train_dataloader(cfg['train_datasets'], data_specs_for_desc(cfg['model_desc']),
+                                     cfg['batch_size'], cfg['max_iters'] * cfg['batch_size'],
+                                     cfg['use_aug'], num_workers=0, seed=cfg['seed'])
+    step = make_train_step('jsd', torch.float32)
+    ref = copy.deepcopy(model).cpu()
+    ref_opt = hyperparam_search.make_sweep_optimiser(ref.parameters(), cfg, lrs).state_dict()
+    for i, (_, batch) in enumerate(device_prefetch(loader, torch.device('cpu'))):
+        start = {k: v.detach().double() for k, v in ref.state_dict().items()}
+        results = {}
+        for device in ('cuda', 'cpu'):
+            m = copy.deepcopy(ref).to(device)
+            opt = hyperparam_search.make_sweep_optimiser(m.parameters(), cfg, lrs)
+            opt.load_state_dict(copy.deepcopy(ref_opt))
+            state = TrainState(m, opt, step=i)
+            loss = float(step(state, {k: v.to(device) for k, v in batch.items()})['loss'])
+            results[device] = (loss, m, opt)
+        (loss_gpu, m_gpu, _), (loss_cpu, ref, opt_cpu) = results['cuda'], results['cpu']
+        ref_opt = opt_cpu.state_dict()
+        share = worst_update_share(
+            {k: v.detach().cpu().double() for k, v in m_gpu.state_dict().items()},
+            {k: v.detach().double() for k, v in ref.state_dict().items()}, start)
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        phase('cli', f'hyperparams iteration {i} (lr {lrs[i]:.3g}) from a common state, card vs '
+                     f'CPU: loss rel err {rel:.3g}; worst parameter tensor at {share[0]:.4f} of '
+                     f'10% of its update + 1e-6 RMS ({share[1]})')
+        if not (rel <= 1e-3 and share[0] <= 1):
+            raise AssertionError(f'sweep iteration {i} on the card disagrees with the CPU\'s')
+
+
+def export_phase(ckpt_dir):
+    """``export_model`` of the train path's checkpoint: native and torch
+    reload strict with the checkpoint's tensors and equal outputs; the
+    torch.export program reloads on the card, its coordinates within 1e-4
+    of the eager forward, both timed at batch 1."""
+    from margipose_tpu_torch.bin import export_model
+    from margipose_tpu_torch.checkpoint import load_model
+
+    out_dir = os.path.join(WORK, 'export')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    model, _ = load_model(ckpt_dir, 'cuda')
+    want = model.state_dict()
+    x = flagship_batch(2, seed=21)['input'].cuda()
+    with torch.inference_mode():
+        xyz = model(x)[0]
+    for fmt, name in (('native', 'native'), ('torch', 'model.pth')):
+        path = os.path.join(out_dir, name)
+        export_model.main(['export_model', '-i', ckpt_dir, '-o', path, '-f', fmt,
+                           '--device', 'cuda'])
+        reloaded, _ = load_model(path, 'cuda')
+        differ = [k for k, v in reloaded.state_dict().items() if not torch.equal(v, want[k])]
+        with torch.inference_mode():
+            equal = torch.equal(reloaded(x)[0], xyz)
+        phase('cli', f'export -f {fmt}: reloaded strict, {len(differ)} tensors differ from the '
+                     f'checkpoint, coordinates equal {equal}')
+        if differ or not equal:
+            raise AssertionError(f'export -f {fmt} does not round-trip: {differ[:5]}')
+    path = os.path.join(out_dir, 'model.pt2')
+    t0 = time.perf_counter()
+    export_model.main(['export_model', '-i', ckpt_dir, '-o', path, '-f', 'export',
+                       '--device', 'cuda'])
+    export_s = time.perf_counter() - t0
+    program = torch.export.load(path).module()
+    x1 = x[:1]
+    with torch.inference_mode():
+        got, eager = program(x1), model(x1)[0]
+        err = (got - eager).abs().max().item()
+        program_ms = median_ms(lambda: program(x1), reps=5, samples=7)
+        eager_ms = median_ms(lambda: model(x1), reps=5, samples=7)
+    phase('cli', f'export -f export: {export_s:.1f} s to export and save; reloaded on the card, '
+                 f'coordinates {tuple(got.shape)} max abs err {err:.3g} against the eager forward '
+                 f'(atol 1e-4); batch 1 ms (CUDA events): exported program {program_ms:.3f}, '
+                 f'eager {eager_ms:.3f}')
+    if not (err <= 1e-4 and got.shape == (1, 17, 3)):
+        raise AssertionError('the exported program disagrees with the eager forward')
+
+
+def gui_forward_gap(ckpt, seen=None):
+    """(examples, coordinates' and last-stage heatmaps' max abs err, the
+    heatmaps' peak) of the gui's per-example forward on the card against
+    the CPU's, on synthetic-2's two examples of ``ckpt``; ``seen`` holds the
+    card's results where the gui made them."""
+    from margipose_tpu_torch.bin import run_gui
+    from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
+    from margipose_tpu_torch.checkpoint import load_model
+    from margipose_tpu_torch.data.get_dataset import get_dataset
+    from margipose_tpu_torch.models import data_specs_for_desc
+
+    cpu_model, desc = load_model(ckpt, 'cpu')
+    dataset = get_dataset('synthetic-2', data_specs_for_desc(desc), use_aug=False)
+    if seen is None:
+        set_float32_parity_mode()
+        forward = run_gui.make_forward(load_model(ckpt, 'cuda')[0], torch.device('cuda'))
+        seen = [run_gui._load_and_process_example(dataset, forward, i) for i in range(2)]
+    forward = run_gui.make_forward(cpu_model, torch.device('cpu'))
+    coords_err = hm_err = peak = 0.0
+    for i, got in enumerate(seen):
+        want = run_gui._load_and_process_example(dataset, forward, i)
+        coords_err = max(coords_err, float(np.abs(got['pred'] - want['pred']).max()))
+        for p in ('xy', 'zy', 'xz'):
+            hm_err = max(hm_err, float(np.abs(got['heatmaps'][p] - want['heatmaps'][p]).max()))
+            peak = max(peak, float(want['heatmaps'][p].max()))
+    return len(seen), coords_err, hm_err, peak
+
+
+def gui_phase(ckpt):
+    """``margipose gui`` on two synthetic-2 examples of the main path's
+    checkpoint (the model phase 6 holds card against CPU): each example's
+    forward on the card within 1e-4 of the CPU's (coordinates and the last
+    stage's heatmaps); the HTML report where matplotlib is installed (its 3D
+    pane needs it), else one line. Returns the launches (no loss, so
+    none)."""
+    import importlib.util
+
+    from margipose_tpu_torch.bin import run_gui
+
+    out_file = os.path.join(WORK, 'gui_report.html')
+    counters = reset_counts()
+    seen = None
+    if importlib.util.find_spec('matplotlib') is not None:
+        seen, undo = recording_results(run_gui, '_load_and_process_example')
+        try:
+            dispatch('gui', '--model', ckpt, '--dataset', 'synthetic-2', '--export-html',
+                     out_file, '--examples', '2')
+        finally:
+            undo()
+        with open(out_file) as f:
+            html = f.read()
+        phase('cli', f'gui: wrote {out_file} ({len(html)} bytes)')
+        if not ('<select id="joint">' in html and 'MPJPE' in html):
+            raise AssertionError('the gui report lacks its joint selector or metrics')
+    else:
+        phase('cli', 'gui: matplotlib is not installed here, so the HTML report (its 3D pane '
+                     'needs matplotlib) was not rendered; the per-example forward ran alone')
+    n, coords_err, hm_err, peak = gui_forward_gap(ckpt, seen)
+    launches = read_counts(counters)
+    phase('cli', f'gui: {n} examples, forward on the card vs CPU: coordinates max abs '
+                 f'err {coords_err:.3g}, last-stage heatmaps {hm_err:.3g} (peak value '
+                 f'{peak:.3f}), atol 1e-4; kernel launches {launches}')
+    if not (n == 2 and max(coords_err, hm_err) <= 1e-4
+            and launches == {'dsnt_jsd_fwd': 0, 'dsnt_jsd_bwd': 0}):
+        raise AssertionError('the gui forward on the card disagrees with the CPU\'s')
+    return launches
+
+
+def cli_phase(model, ckpt):
+    """Phase 21: the ``margipose`` command (``margipose_tpu_torch.bin.main``)
+    on the card: hyperparams (the kernel path), the sweep card against CPU,
+    eval through the dispatcher against bin.eval_3d.main and export on phase
+    7's model-latest, gui on the main path's checkpoint ``ckpt``,
+    calc_dataloader_stats, and bench_loader where h5py is installed. Returns
+    the launches by path."""
+    import contextlib
+    import importlib.util
+
+    from margipose_tpu_torch.bin import calc_dataloader_stats, eval_3d
+
+    t_phase = time.perf_counter()
+    by_path = {'hyperparams': hyperparams_phase()}
+    hyperparams_parity_phase(model)
+
+    ckpt_dir = os.path.join(WORK, 'train', 'flagship', 'model-latest')  # phase 7's
+    args = ['--model', ckpt_dir, '--dataset', 'synthetic-64', '--batch-size', '32',
+            '--precision', 'float32']
+    rows, _ = eval_3d.main(args + ['--device', 'cuda'])
+    seen, undo = recording_results(eval_3d, 'run_evaluation_3d')
+    counters = reset_counts()
+    try:
+        dispatch('eval', *args)
+    finally:
+        undo()
+    by_path['cli_eval'] = read_counts(counters)
+    (got, stats), = seen
+    equal = all(np.array_equal(got[m], rows[m]) for m in eval_3d.METRICS)
+    phase('cli', f'eval through the dispatcher: kernel launches {by_path["cli_eval"]}; metrics '
+                 f'equal the direct bin.eval_3d.main call: {equal}; overall '
+                 f'{eval_3d.overall_metrics(got)}')
+    if not (equal and by_path['cli_eval'] == {'dsnt_jsd_fwd': stats['batches'],
+                                              'dsnt_jsd_bwd': 0}):
+        raise AssertionError('eval through the dispatcher differs from bin.eval_3d.main')
+
+    export_phase(ckpt_dir)
+    by_path['cli_gui'] = gui_phase(ckpt)
+    _, coords_err, hm_err, peak = gui_forward_gap(ckpt_dir)
+    phase('cli', f'the gui forward on phase 7\'s checkpoint (4 1cycle steps up to lr 1.0), card vs '
+                 f'CPU: coordinates {coords_err:.3g}, heatmaps {hm_err:.3g} (peak value '
+                 f'{peak:.3f}); not held: the softmax carries the float32 rounding of this '
+                 f'checkpoint\'s large logits')
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        calc_dataloader_stats.main(['calc_dataloader_stats', '--dataset', 'synthetic-64',
+                                    '--examples', '64', '--out-file',
+                                    os.path.join(WORK, 'dataloader_stats.png')])
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        phase('cli', f'calc_dataloader_stats: {line}')
+    if not (len(lines) >= 4 and f'n={64 * 17}' in lines[0]):
+        raise AssertionError(f'calc_dataloader_stats printed {lines}')
+
+    if importlib.util.find_spec('h5py') is None:
+        phase('cli', 'bench_loader: h5py is not installed here, so it did not run (its fake '
+                     'MPI-INF-3DHP corpus is HDF5)')
+    else:
+        from margipose_tpu_torch.bin import bench_loader
+
+        rates = bench_loader.main(['--seconds', '5', '--workers', '0,4'])
+        phase('cli', f'bench_loader: host images/s by workers {rates}')
+    phase('cli', f'phase 21 took {time.perf_counter() - t_phase:.1f} s')
+    return by_path
+
+
 def multi_gpu_main():
     """``python3 chip_smoke.py --multi-gpu``, on a machine with several
     cards: the build and phase 20 across every card (NCCL between them),
@@ -1971,6 +2315,7 @@ def main():
     by_path.update(datasets_phase(model, ckpt))
     by_path.update(device_aug_phase(model))
     by_path.update(distributed_phase(model, ckpt))
+    by_path.update(cli_phase(model, ckpt))
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]

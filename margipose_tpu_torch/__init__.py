@@ -10,7 +10,10 @@ find:
   parallel/  the bf16 autocast policy (precision.py), the multi-GPU process
              group (mesh.py)
   train/     train/eval steps, schedules, train-state checkpoints, meters
-  bin/       CLI entry points (eval_3d, train_3d, infer_single, serve)
+  cli.py     the margipose command's plumbing (global --device, Subcommand)
+  bin/       the margipose command (``python -m margipose_tpu_torch.bin``) and
+             its entry points (eval_3d, train_3d, hyperparam_search,
+             infer_single, serve, run_gui), export_model, the loader tools
 
 The port imports nothing of ``margipose_tpu``; the numpy host code is a copy.
 Entry points run on ``cuda`` unless the caller asks for the CPU.

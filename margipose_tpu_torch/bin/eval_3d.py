@@ -34,6 +34,7 @@ import torch
 
 from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.checkpoint import load_model
+from margipose_tpu_torch.cli import bin_subcommand
 from margipose_tpu_torch.data.get_dataset import get_dataset
 from margipose_tpu_torch.data.loader import make_dataloader, make_unbatched_dataloader
 from margipose_tpu_torch.data.specs import device_input, to_device
@@ -401,6 +402,9 @@ def main(argv=None):
               + f" ms; {len(rows['mpjpe']) / total:.1f} images/s over {stats['batches']} batches")
     print(f"mean loss: {stats['mean_loss']}")
     return rows, stats
+
+
+Eval_Subcommand = bin_subcommand('eval', main, help='evaluate the accuracy of predictions')
 
 
 if __name__ == '__main__':

@@ -28,6 +28,7 @@ import torch
 from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
 from margipose_tpu_torch.checkpoint import load_model
+from margipose_tpu_torch.cli import bin_subcommand
 from margipose_tpu_torch.geometry.coords import ensure_cartesian
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc
 from margipose_tpu_torch.models import data_specs_for_desc, default_data_specs
@@ -181,6 +182,9 @@ def main(argv=None):
     else:
         plt.show()
     return inp, output
+
+
+Infer_Subcommand = bin_subcommand('infer', main, help='infer 3D pose for single image')
 
 
 if __name__ == '__main__':

@@ -55,6 +55,7 @@ from margipose_tpu_torch import native, resolve_device
 from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
 from margipose_tpu_torch.bin.infer_single import prefilter
 from margipose_tpu_torch.checkpoint import load_model
+from margipose_tpu_torch.cli import bin_subcommand
 from margipose_tpu_torch.data.specs import device_input
 from margipose_tpu_torch.geometry.transforms import warp_image_pil
 from margipose_tpu_torch.models import data_specs_for_desc
@@ -450,6 +451,9 @@ def main(argv=None):
         server.shutdown()
     finally:
         server.server_close()
+
+
+Serve_Subcommand = bin_subcommand('serve', main, help='batched HTTP inference server')
 
 
 if __name__ == '__main__':

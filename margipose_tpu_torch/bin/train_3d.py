@@ -46,6 +46,7 @@ import torch
 from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.bin.eval_3d import DeviceClock, set_float32_parity_mode
 from margipose_tpu_torch.checkpoint import load_model
+from margipose_tpu_torch.cli import bin_subcommand
 from margipose_tpu_torch.config import Experiment
 from margipose_tpu_torch.data.loader import DEVICE_FIELDS
 from margipose_tpu_torch.data.mpi_inf_3dhp import MpiInf3dDataset
@@ -529,6 +530,9 @@ def main(argv=None):
     finally:
         if joined:
             mesh.shutdown()
+
+
+Train_Subcommand = bin_subcommand('train', main, help='train a model')
 
 
 if __name__ == '__main__':

@@ -40,6 +40,23 @@ def _coord_expectation(heatmaps: torch.Tensor, axis: int) -> torch.Tensor:
     return (heatmaps * coords.reshape(shape)).sum(dim=tuple(range(2, heatmaps.ndim)))
 
 
+def coord_expectation(heatmaps: torch.Tensor, dim: int) -> torch.Tensor:
+    """E[X] along a spatial dim of normalized heatmaps, ``[B, C]``; ``dim`` may
+    be negative (reference: src/margipose/dsntnn.py:45-62)."""
+    return _coord_expectation(heatmaps, dim % heatmaps.ndim)
+
+
+def coord_variance(heatmaps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Var[X] along a spatial dim, ``[B, C]`` (reference:
+    src/margipose/dsntnn.py:65-81)."""
+    axis = dim % heatmaps.ndim
+    mu = _coord_expectation(heatmaps, axis)
+    other = tuple(a for a in range(2, heatmaps.ndim) if a != axis)
+    marginal = heatmaps.sum(dim=other) if other else heatmaps
+    coords = normalized_linspace(heatmaps.shape[axis], heatmaps.dtype, heatmaps.device)
+    return (marginal * (coords - mu[..., None]) ** 2).sum(-1)
+
+
 def dsnt(heatmaps: torch.Tensor) -> torch.Tensor:
     """Soft-argmax of normalized heatmaps: ``[B, C, *spatial] -> [B, C, n]``,
     coordinates ordered (x, y, ...) (reference: src/margipose/dsntnn.py:84-96)."""
@@ -118,12 +135,25 @@ def _js(p: torch.Tensor, q: torch.Tensor, ndims: int) -> torch.Tensor:
     return 0.5 * _kl(p, m, ndims) + 0.5 * _kl(q, m, ndims)
 
 
-def js_reg_losses(heatmaps: torch.Tensor, mu_t: torch.Tensor, sigma_t) -> torch.Tensor:
-    """Jensen-Shannon divergence between heatmaps and target Gaussians
-    (reference: src/margipose/dsntnn.py:220-232). The target coordinates are
-    constants: no gradient reaches ``mu_t``."""
+def _divergence_reg_losses(heatmaps, mu_t, sigma_t, divergence):
+    # The target coordinates are constants (they come from the data
+    # pipeline), as in the JAX package and the CUDA kernel's backward: no
+    # gradient reaches ``mu_t``.
     mu_t = mu_t.detach()
     ndims = mu_t.shape[-1]
     assert heatmaps.ndim == ndims + 2, f"expected heatmaps to be a {ndims + 2}D tensor"
+    assert heatmaps.shape[:-ndims] == mu_t.shape[:-1]
     gauss = make_gauss(mu_t, heatmaps.shape[2:], sigma_t)
-    return _js(heatmaps, gauss, ndims)
+    return divergence(heatmaps, gauss, ndims)
+
+
+def js_reg_losses(heatmaps: torch.Tensor, mu_t: torch.Tensor, sigma_t) -> torch.Tensor:
+    """Jensen-Shannon divergence between heatmaps and target Gaussians
+    (reference: src/margipose/dsntnn.py:220-232)."""
+    return _divergence_reg_losses(heatmaps, mu_t, sigma_t, _js)
+
+
+def kl_reg_losses(heatmaps: torch.Tensor, mu_t: torch.Tensor, sigma_t) -> torch.Tensor:
+    """KL divergence between heatmaps and target Gaussians
+    (reference: src/margipose/dsntnn.py:198-217)."""
+    return _divergence_reg_losses(heatmaps, mu_t, sigma_t, _kl)

@@ -120,6 +120,15 @@ def save_checkpoint(ckpt_dir: str, state, model_desc: dict, extra: dict | None =
     return thread
 
 
+def save_weights(ckpt_dir: str, model: torch.nn.Module, model_desc: dict) -> None:
+    """A weights-only checkpoint in ``save_checkpoint``'s layout: the model's
+    state_dict and no optimiser state or step (the counterpart of the JAX
+    package's weights-only ``save_model``). ``checkpoint.load_model`` reads
+    it; ``restore_checkpoint`` needs a full train state."""
+    _write_and_swap(path.abspath(ckpt_dir), _to_host({'model': model.state_dict()}),
+                    {'model_desc': model_desc})
+
+
 def _state_file(ckpt_dir: str) -> str:
     state_dir = path.join(ckpt_dir, 'state')
     if not path.isdir(state_dir):

@@ -36,13 +36,16 @@ def _forbidden(name: str) -> bool:
 
 
 def test_importing_every_port_module_loads_no_jax():
-    """Nor matplotlib: only infer's PNG needs it, and it imports it there."""
+    """Nor matplotlib: only the plots need it (infer's PNG, the GUI's 3D pane,
+    the LR curve and the loader histograms), and they import it there."""
     modules = _port_modules()
     for name in ('bin.eval_3d', 'bin.train_3d', 'bin.infer_single', 'bin.serve',
                  'bin.preprocess_mpi3d', 'ops.dsnt_jsd', 'ops.image', 'parallel.precision',
                  'data.mpi_inf_3dhp', 'data.mpi3d_raw', 'data.fake_mpi3d', 'data.mixed',
                  'data.h36m', 'data.mpii', 'data.fakes', 'data.mpi3d_preprocess',
-                 'parallel.mesh'):
+                 'parallel.mesh', 'cli', 'bin', 'bin.__main__', 'bin.hyperparam_search',
+                 'bin.export_model', 'bin.run_gui', 'bin.calc_dataloader_stats',
+                 'bin.bench_loader'):
         assert f'margipose_tpu_torch.{name}' in modules
     code = (
         'import importlib, sys\n'
