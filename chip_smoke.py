@@ -132,6 +132,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                    printed);
                    calc_dataloader_stats on synthetic-64; bench_loader where
                    h5py is installed.
+ 22. tensor parallel
+                   the hybrid ('data', 'model') mesh (parallel/mesh.py) on
+                   the full-width flagship: `torch.distributed.run
+                   --nproc_per_node 1 chip_smoke.py --tp-worker DIR 1 1 nccl`
+                   (mesh (1, 1), nothing sharded, no DDP) and two processes
+                   on cuda:0 over gloo (mesh (1, 2): 346 convolutions split
+                   on output channels; NCCL refuses two ranks on one card).
+                   Each: one eval batch and one train step at batch 2, both
+                   kernels counted (2 and 1 in every process), all-reduces
+                   and all-gathers counted, every process's gathered weights
+                   equal bit for bit, the step against the card's plain step
+                   (phase 9's rules), the eval batch against plain eval.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
@@ -196,6 +208,7 @@ DEVICE_AUG_STEPS = 3       # each on-device augmentation train path at batch 32
 CROP_CANVAS = 384          # crop-ship canvas of the device_aug_canvas paths
 DDP_STEPS = 3              # the train bin's steps under the NCCL process group
 HYPERPARAM_ITERS = 8       # the LR range test's iterations at batch 32
+TP_TRACE_ROWS = 32         # global rows of phase 22's traced hybrid-mesh step
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -597,7 +610,10 @@ def profiled(fn):
     busy ms, the unprofiled window's ms). The profiler adds host time to
     every launch, so only the unprofiled window says how long the device
     waits for the host. The events are empty where the profiler saw no
-    device activity."""
+    device activity. Ranges the host names (``record_function``:
+    ``nccl:all_reduce``, ``DistributedDataParallel.forward``) also carry
+    device time, that of the kernels inside them: they are left out, so no
+    kernel is counted twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -611,8 +627,10 @@ def profiled(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    averages = prof.key_averages()
+    host_ranges = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    events = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in host_ranges]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     return events, busy_ms, start.elapsed_time(end)
 
@@ -626,6 +644,9 @@ def kernel_ms(events, words):
 # product, c2r), dgrad (also the transposed convolution's forward) and wgrad
 CONV_WORDS = ('conv', 'gemm', 'xmma', 'fft', 'complex', 'dgrad', 'wgrad', 'fprop')
 FFT_WORDS = ('fft', 'complex')
+TP_TRACE_GROUPS = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
+                   ('NCCL collectives', ('nccl',)), ('copies and casts', ('copy',)),
+                   ('concatenation', ('catarray',)), ('dsnt_jsd head', ('dsnt_jsd',))]
 EVAL_GROUPS = [('convolutions', CONV_WORDS), ('of which FFT', FFT_WORDS),
                ('batch norm', ('batch_norm', 'bn_')), ('dsnt_jsd head', ('dsnt_jsd',)),
                ('softmax', ('softmax',)), ('copies and casts', ('copy',))]
@@ -1814,9 +1835,9 @@ def ddp_worker(work):
                           'ddp train trace' if rank == 0 else f'ddp train trace, process {rank}')
         real, reduced = mesh.all_reduce_sum, []
 
-        def counting(tensor):
+        def counting(tensor, group=None):
             reduced.append(tensor.numel())
-            return real(tensor)
+            return real(tensor, group)
 
         mesh.all_reduce_sum = counting
         counters = reset_counts()
@@ -2255,10 +2276,207 @@ def cli_phase(model, ckpt):
     return by_path
 
 
+def counting_collectives():
+    """Wrap ``torch.distributed``'s all_reduce and all_gather (the calls
+    ``parallel/mesh.py`` makes) to count them. Returns (the counts, undo).
+    DistributedDataParallel's bucket all-reduces are made in C++ and are not
+    counted."""
+    import torch.distributed as dist
+
+    counts = {'all_reduce': 0, 'all_gather': 0}
+    real = {name: getattr(dist, name) for name in counts}
+
+    def wrap(name):
+        def counted(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return counted
+
+    for name in counts:
+        setattr(dist, name, wrap(name))
+    return counts, lambda: [setattr(dist, name, fn) for name, fn in real.items()]
+
+
+def tp_worker(work, d, m, backend):
+    """A process torchrun starts for phase 22 (``--tp-worker WORK D M
+    BACKEND``): the flagship at full width placed on a (d, m) mesh
+    (``mesh.make_mesh``, ``mesh.shard_variables``); one eval batch and one
+    train step at 2 rows a data coordinate from the weights and batch in
+    ``WORK/input.pt``, with both kernels' launches and the collectives
+    counted from 0 around them; the gathered state (process 0) and its
+    digest (every process). With ``trace`` in the input, a fresh state's
+    train step of 32 global rows, timed by CUDA events and traced. NCCL
+    puts process r on ``cuda:LOCAL_RANK``; gloo puts every process on
+    ``cuda:0`` (NCCL refuses two ranks on one card; gloo takes CUDA
+    tensors on the card's torch 2.11, checked once). Writes
+    ``WORK/tp<d>x<m>-<rank>.pt``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from margipose_tpu_torch.bin.eval_3d import set_float32_parity_mode
+    from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model
+    from margipose_tpu_torch.parallel import mesh
+    from margipose_tpu_torch.train.schedules import make_optimiser
+    from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
+
+    set_float32_parity_mode()
+    if backend == 'nccl':
+        device = mesh.init_from_env(torch.device('cuda'))
+    else:
+        device = torch.device('cuda', 0)
+        torch.cuda.set_device(device)
+        dist.init_process_group('gloo')
+    try:
+        inputs = torch.load(os.path.join(work, 'input.pt'))
+        grid = mesh.make_mesh((d, m))
+        rank = mesh.process_index()
+
+        def placed():
+            with torch.device(device):  # initialised on the card: faster, then overwritten
+                model = create_model(Default_MargiPose_Desc)
+            model.load_state_dict(inputs['model'])
+            return mesh.shard_variables(model, grid)
+
+        model = placed()
+        state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0, max_iters=10))
+        batch = {k: v.to(device) for k, v in mesh.shard_batch(inputs['batch'], grid).items()}
+        collectives, undo = counting_collectives()
+        counters = reset_counts()
+        try:
+            evaluated = make_eval_step('jsd', mesh=grid)(model, batch)
+            eval_collectives = dict(collectives)
+            loss = float(make_train_step('jsd', mesh=grid)(state, batch)['loss'])
+        finally:
+            undo()
+        launches = read_counts(counters)
+        train_collectives = {k: v - eval_collectives[k] for k, v in collectives.items()}
+        full = mesh.full_state_dict(model)
+        digest = hashlib.sha256()
+        for key, value in full.items():
+            digest.update(key.encode() + value.cpu().numpy().tobytes())
+        out = {'loss': loss, 'digest': digest.hexdigest(), 'launches': launches,
+               'eval_collectives': eval_collectives, 'train_collectives': train_collectives,
+               'eval_loss': float(evaluated['loss']), 'eval_pred': evaluated['pred'].cpu(),
+               'coords': grid.coords, 'backend': dist.get_backend(), 'device': str(device),
+               'sharded': sum(dim is not None
+                              for dim in mesh.param_shardings(grid, model).values()),
+               'state': ({k: v.detach().cpu().double() for k, v in full.items()}
+                         if rank == 0 else None)}
+        del state, model, full
+        if inputs['trace']:
+            model = placed()
+            state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0,
+                                                     max_iters=100))
+            step = make_train_step('jsd', mesh=grid)
+            big = {k: v.to(device) for k, v in
+                   mesh.shard_batch(flagship_batch(TP_TRACE_ROWS, seed=5), grid).items()}
+            step(state, big)  # cuDNN's algorithm search for these shapes
+            collectives, undo = counting_collectives()
+            try:
+                events, busy, window = profiled(lambda: step(state, big))
+            finally:
+                undo()
+            name = f'tp {d}x{m} trace' + ('' if rank == 0 else f', process {rank}')
+            report_trace(name, f'one train step of {TP_TRACE_ROWS} global rows '
+                               f'({TP_TRACE_ROWS // d} a process), float32; collectives a step '
+                               f'{collectives["all_gather"] // 3} all-gathers, '
+                               f'{collectives["all_reduce"] // 3} all-reduces (counted over the '
+                               f'warm-up, timed and traced steps)',
+                         events, busy, window, TP_TRACE_GROUPS)
+            out['trace'] = {'window_ms': window, 'busy_ms': busy,
+                            'launches': sum(e.count for e in events),
+                            'collectives': {k: v // 3 for k, v in collectives.items()}}
+        torch.save(out, os.path.join(work, f'tp{d}x{m}-{rank}.pt'))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
+def tensor_parallel_phase(model, meshes):
+    """Phase 22: the hybrid ('data', 'model') mesh. For each ``(d, m,
+    backend, trace)`` in ``meshes``, ``tp_worker`` in d x m processes under
+    ``torch.distributed.run``: both kernels once in the eval batch and once
+    more in the train step, in every process; every process's gathered
+    weights equal bit for bit; the step on 2 rows a data coordinate against
+    the card's plain step on the whole batch (phase 9's rules); the eval
+    batch's loss and coordinates against the plain eval (phase 6's rules:
+    loss rtol 1e-3, coordinates atol 1e-4); a traced step where asked.
+    Returns the launches by path (process 0's; all must agree)."""
+    from margipose_tpu_torch.train.steps import make_eval_step
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    for d, m, backend, trace in meshes:
+        t0 = time.perf_counter()
+        work = os.path.join(WORK, f'tp{d}x{m}')
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        batch = flagship_batch(2 * d, seed=3)
+        torch.save({'model': {k: v.cpu() for k, v in model.state_dict().items()}, 'batch': batch,
+                    'trace': trace}, os.path.join(work, 'input.pt'))
+        proc = subprocess.run([sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                               '--nproc_per_node', str(d * m), os.path.abspath(__file__),
+                               '--tp-worker', work, str(d), str(m), backend], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith('[tp '):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f'the {d}x{m} workers exited {proc.returncode}:\n'
+                                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+        outs = [torch.load(os.path.join(work, f'tp{d}x{m}-{r}.pt')) for r in range(d * m)]
+        out = outs[0]
+        expected = {'dsnt_jsd_fwd': 2, 'dsnt_jsd_bwd': 1}
+        phase('tensor parallel', f'mesh ({d}, {m}), {out["backend"]}, '
+                                 f'{[o["device"] for o in outs]}: {out["sharded"]} weights '
+                                 f'sharded; '
+                                 f'kernel launches {[o["launches"] for o in outs]}, expected '
+                                 f'{expected} in each process (one eval batch, one train step); '
+                                 f'collectives in the eval batch {out["eval_collectives"]}, in the '
+                                 f'train step {out["train_collectives"]}')
+        if (any(o['launches'] != expected for o in outs) or out['backend'] != backend
+                or [o['coords'] for o in outs] != [{'data': r // m, 'model': r % m}
+                                                   for r in range(d * m)]
+                or out['sharded'] != (0 if m == 1 else 346)):
+            raise AssertionError(f'the {d}x{m} mesh: '
+                                 f'{[{k: v for k, v in o.items() if k != "state"} for o in outs]}')
+        differ = [r for r, o in enumerate(outs) if o['digest'] != out['digest']]
+        phase('tensor parallel', f'mesh ({d}, {m}): processes whose gathered weights differ from '
+                                 f'process 0\'s: {differ}')
+        if differ:
+            raise AssertionError(f'the {d}x{m} mesh\'s processes disagree: {differ}')
+        step_parity('tensor parallel', f'mesh ({d}, {m}), one train step on a global batch of '
+                                       f'{2 * d} vs one process\'s plain step on the card',
+                    model, lambda device: batch, distributed=(out['loss'], out['state']))
+        plain = make_eval_step('jsd')(model, {k: v.cuda() for k, v in batch.items()})
+        pred = torch.cat([outs[i * m]['eval_pred'] for i in range(d)])
+        err = (pred - plain['pred'].cpu()).abs().max().item()
+        rel = abs(out['eval_loss'] - float(plain['loss'])) / abs(float(plain['loss']))
+        phase('tensor parallel', f'mesh ({d}, {m}), one eval batch of {2 * d}: coordinates max '
+                                 f'abs err {err:.3g} (atol 1e-4), loss rel err {rel:.3g} (rtol '
+                                 f'1e-3) against the plain eval on the card')
+        if not (err <= 1e-4 and rel <= 1e-3 and all(
+                abs(o['eval_loss'] - out['eval_loss']) <= 1e-6 * abs(out['eval_loss'])
+                for o in outs)):
+            raise AssertionError(f'the {d}x{m} mesh\'s eval batch disagrees')
+        if trace:
+            ms = [o['trace']['window_ms'] for o in outs]
+            phase('tensor parallel', f'mesh ({d}, {m}): a train step of {TP_TRACE_ROWS} global '
+                                     f'rows, window by process {", ".join(f"{t:.3f}" for t in ms)} '
+                                     f'ms; process 0 {out["trace"]}')
+        by_path[f'tensor_parallel_{d}x{m}'] = out['launches']
+        phase('tensor parallel', f'mesh ({d}, {m}) took {time.perf_counter() - t0:.1f} s')
+    phase('tensor parallel', f'phase 22 took {time.perf_counter() - t_phase:.1f} s')
+    return by_path
+
+
 def multi_gpu_main():
     """``python3 chip_smoke.py --multi-gpu``, on a machine with several
-    cards: the build and phase 20 across every card (NCCL between them),
-    nothing else. Exits 1 on a machine with fewer than two cards."""
+    cards: the build, phase 20 across every card (NCCL between them) and
+    phase 22 on the meshes (n/2, 2) and (1, n), each with a traced train
+    step of 32 global rows, nothing else. Exits 1 on a machine with fewer
+    than two cards."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < 2:
         print(f'chip_smoke --multi-gpu: {n} CUDA card(s); this mode needs two or more',
@@ -2275,7 +2493,10 @@ def multi_gpu_main():
     os.makedirs(WORK, exist_ok=True)
     ckpt = os.path.join(WORK, 'margipose-flagship-random.pth')
     save_model(ckpt, model, Default_MargiPose_Desc)
-    print(json.dumps({'launches_by_path': distributed_phase(model, ckpt, n)}), flush=True)
+    by_path = distributed_phase(model, ckpt, n)
+    by_path.update(tensor_parallel_phase(model, [(n // 2, 2, 'nccl', True),
+                                                 (1, n, 'nccl', True)]))
+    print(json.dumps({'launches_by_path': by_path}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': n}}),
           flush=True)
     return 0
@@ -2316,6 +2537,7 @@ def main():
     by_path.update(device_aug_phase(model))
     by_path.update(distributed_phase(model, ckpt))
     by_path.update(cli_phase(model, ckpt))
+    by_path.update(tensor_parallel_phase(model, [(1, 1, 'nccl', False), (1, 2, 'gloo', False)]))
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]
@@ -2330,6 +2552,8 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--ddp-worker']:
         sys.exit(ddp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ['--tp-worker']:
+        sys.exit(tp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:] == ['--multi-gpu']:
         sys.exit(multi_gpu_main())
     sys.exit(main())

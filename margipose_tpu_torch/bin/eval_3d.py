@@ -265,17 +265,18 @@ def overall_metrics(rows) -> dict:
     return {m: float(np.mean(rows[m])) for m in METRICS}
 
 
-def make_forward(model, pixelwise_loss, compute_dtype=None, distributed=False):
+def make_forward(model, pixelwise_loss, compute_dtype=None, distributed=False, group=None):
     """``forward(images, target, mask, valid_depth) -> (xyz, loss)``, both
     float32: the model runs under ``compute_dtype_scope``, the loss outside
-    it (its heatmaps are float32 either way); over the process group's
-    global batch with ``distributed``."""
+    it (its heatmaps are float32 either way); with ``distributed``, over the
+    global batch of ``group`` (the mesh's 'data' group; None: every
+    process)."""
     def forward(images, target, mask, valid_depth):
         with torch.inference_mode():
             with compute_dtype_scope(compute_dtype, images.device):
                 xyz, out = model(images)
             loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss,
-                                         distributed)
+                                         distributed, group)
         return xyz.float(), loss
     return forward
 

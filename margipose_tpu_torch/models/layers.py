@@ -19,7 +19,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch variance, as the JAX package's BatchNorm (flax) does, and whose
     train-mode statistics span the global batch while a process group is
     active (``parallel/mesh.py``), as flax's do under the JAX package's
-    shard_map steps (``axis_name`` from ``current_shard_axis()``).
+    shard_map steps (``axis_name`` from ``current_shard_axis()``): the rows
+    of the processes in ``process_group``, the mesh's 'data' group once
+    ``mesh.shard_variables`` has placed the model (None: every process).
 
     Both frameworks normalise with the biased batch variance; torch folds the
     unbiased one into ``running_var``, a factor n/(n-1) with n = B*H*W per
@@ -27,6 +29,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     EMA factor, torch leaves ``new = (1-f) old + f var_u``, and
     ``new - (new - (1-f) old) / n`` is ``(1-f) old + f var_u (n-1)/n``.
     """
+
+    process_group = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
@@ -51,7 +55,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         return 1.0 - self.momentum
 
     def _global_forward(self, x):
-        """Train-mode batch norm over every process's rows. Per channel,
+        """Train-mode batch norm over the group's rows. Per channel,
         [sum, sum of squares] and the row count go through one differentiable
         all-reduce (its backward all-reduces the gradients, so each process's
         input gradient has the other processes' terms); then flax's one-pass
@@ -63,7 +67,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         xf = x.float()
         count = torch.full((1,), float(x.numel() // c), device=x.device)
         stats = mesh.all_reduce_sum(
-            torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]))
+            torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]),
+            self.process_group)
         n = stats[-1]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)

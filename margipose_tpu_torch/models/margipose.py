@@ -197,8 +197,9 @@ def margipose_joint_losses(out: ModelOutput, target, valid_depth, pixelwise_loss
 
 
 def margipose_masked_loss(out: ModelOutput, target, joint_mask, valid_depth,
-                          pixelwise_loss='jsd', distributed=False):
+                          pixelwise_loss='jsd', distributed=False, group=None):
     """``margipose_joint_losses``' masked mean over joints; over the global
-    batch with ``distributed`` (``ops/dsnt.average_loss``)."""
+    batch of ``group``'s processes with ``distributed``
+    (``ops/dsnt.average_loss``)."""
     return average_loss(margipose_joint_losses(out, target, valid_depth, pixelwise_loss),
-                        joint_mask, distributed=distributed)
+                        joint_mask, distributed=distributed, group=group)

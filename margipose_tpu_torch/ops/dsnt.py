@@ -79,16 +79,17 @@ def euclidean_losses(actual: torch.Tensor, target: torch.Tensor) -> torch.Tensor
 
 
 def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None,
-                 distributed: bool = False) -> torch.Tensor:
+                 distributed: bool = False, group=None) -> torch.Tensor:
     """Masked mean of per-location losses; the denominator is clipped at 1
     so an all-masked batch gives 0 (reference: src/margipose/dsntnn.py:99-121).
 
-    ``distributed``: all-reduce the numerator and the denominator over the
-    active process group, so the result is the masked mean over the GLOBAL
-    batch, as the JAX package psums both under shard_map. The numerator's
-    all-reduce is differentiable: its backward sums the processes'
-    gradients, which DistributedDataParallel's averaging then divides back,
-    so the gradient is the global mean's even when the processes hold
+    ``distributed``: all-reduce the numerator and the denominator over
+    ``group`` (the mesh's 'data' group; None: every process), so the result
+    is the masked mean over the GLOBAL batch, as the JAX package psums both
+    under shard_map. The numerator's all-reduce is differentiable: its
+    backward sums the processes' gradients, which DistributedDataParallel's
+    averaging then divides back, so the gradient is the global mean's even
+    when the processes hold
     different numbers of unmasked joints."""
     if mask is None:
         num = losses.sum()
@@ -101,8 +102,8 @@ def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None,
     if distributed:
         from margipose_tpu_torch.parallel.mesh import all_reduce_sum
 
-        num = all_reduce_sum(num)
-        denom = all_reduce_sum(denom.detach())
+        num = all_reduce_sum(num, group)
+        denom = all_reduce_sum(denom.detach(), group)
     if mask is not None:
         denom = denom.clamp(min=1.0)
     return num / denom

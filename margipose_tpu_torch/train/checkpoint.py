@@ -12,11 +12,16 @@ previous ``state`` as ``state.old`` until the new one is on disk, so a
 process killed mid-save never loses the last good checkpoint: restore falls
 back to ``state.old``.
 
-Under a process group of several processes every process holds the same
-replicated state: all of them call ``save_checkpoint``, process 0 alone
-writes and swaps, fenced by barriers so that no process restores or saves
-again before the swap is done, and the save is synchronous (the JAX
-package's multi-host saves are collective and synchronous too).
+Under a process group of several processes all of them call
+``save_checkpoint``, process 0 alone writes and swaps, fenced by barriers
+so that no process restores or saves again before the swap is done, and the
+save is synchronous (the JAX package's multi-host saves are collective and
+synchronous too). A model sharded over a mesh's 'model' axis
+(``parallel/mesh.shard_variables``) is gathered first, its weights and its
+optimiser's buffers, so the file holds the plain model's layout, as orbax
+writes the JAX package's global arrays: it loads with
+``load_state_dict(strict=True)`` into the plain model, and
+``restore_checkpoint`` cuts it back into a sharded one.
 """
 
 from __future__ import annotations
@@ -107,9 +112,12 @@ def save_checkpoint(ckpt_dir: str, state, model_desc: dict, extra: dict | None =
     if multi:
         mesh.barrier()
     thread = None
+    model_state = mesh.full_state_dict(state.model)
+    optimiser_state = {'count': state.optimiser.count, 'optimiser': mesh.full_optimiser_state(
+        state.optimiser.optimiser, state.model)}  # ScheduledOptimiser.state_dict's layout
     if mesh.process_index() == 0:
-        payload = _to_host({'step': state.step, 'model': state.model.state_dict(),
-                            'optimiser': state.optimiser.state_dict()})
+        payload = _to_host({'step': state.step, 'model': model_state,
+                            'optimiser': optimiser_state})
         meta = {'model_desc': model_desc, **(extra or {})}
         if background and not multi:
             thread = _BackgroundSave(_write_and_swap, (ckpt_dir, payload, meta))
@@ -124,9 +132,12 @@ def save_weights(ckpt_dir: str, model: torch.nn.Module, model_desc: dict) -> Non
     """A weights-only checkpoint in ``save_checkpoint``'s layout: the model's
     state_dict and no optimiser state or step (the counterpart of the JAX
     package's weights-only ``save_model``). ``checkpoint.load_model`` reads
-    it; ``restore_checkpoint`` needs a full train state."""
-    _write_and_swap(path.abspath(ckpt_dir), _to_host({'model': model.state_dict()}),
-                    {'model_desc': model_desc})
+    it; ``restore_checkpoint`` needs a full train state. A sharded model is
+    gathered (every process calls this) and process 0 writes."""
+    model_state = mesh.full_state_dict(model)
+    if mesh.process_index() == 0:
+        _write_and_swap(path.abspath(ckpt_dir), _to_host({'model': model_state}),
+                        {'model_desc': model_desc})
 
 
 def _state_file(ckpt_dir: str) -> str:
@@ -148,10 +159,13 @@ def load_payload(ckpt_dir: str) -> dict:
 
 def restore_checkpoint(ckpt_dir: str, state) -> None:
     """Load a train state saved by ``save_checkpoint`` into ``state`` in place:
-    the model's weights and buffers (strict), the optimiser and the step."""
+    the model's weights and buffers (strict), the optimiser and the step. A
+    sharded model and its optimiser take their slices."""
     payload = load_payload(ckpt_dir)
-    state.model.load_state_dict(payload['model'], strict=True)
-    state.optimiser.load_state_dict(payload['optimiser'])
+    mesh.load_full_state_dict(state.model, payload['model'])
+    saved = payload['optimiser']
+    state.optimiser.load_state_dict({**saved, 'optimiser': mesh.local_optimiser_state(
+        saved['optimiser'], state.optimiser.optimiser, state.model)})
     state.step = int(payload['step'])
 
 

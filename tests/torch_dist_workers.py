@@ -10,6 +10,7 @@ writes each process's final model state to ``<out>/rank<r>.pt``::
         tests/torch_dist_workers.py OUT -- --device cpu with ...
 """
 
+import hashlib
 import os
 import sys
 
@@ -71,6 +72,75 @@ def train_step_worker(rank, world, desc, state_dict, batch, schedule, out_dir):
     torch.save({'model': model.state_dict(), 'loss': metrics['loss'], 'pred': metrics['pred'],
                 'ddp': state.replica is not None},
                os.path.join(out_dir, f'step{rank}.pt'))
+
+
+def in_turn(rank, world, jobs):
+    """Each ``(worker, args)`` of ``jobs`` in turn, in one process group."""
+    for fn, args in jobs:
+        fn(rank, world, *args)
+
+
+def tensor_parallel_worker(rank, world, shape, desc, state_dict, batch, schedule, out_dir,
+                           fault=None):
+    """An eval step, a train step and a checkpoint save and restore on a
+    ``shape`` mesh (``mesh.make_mesh``; None: the default) with the model
+    placed by ``mesh.shard_variables``, on this process's data coordinate's
+    rows of the global ``batch``. Saves to ``<out_dir>/<d>x<m>[-fault]-<rank>.pt``
+    the loss, the predictions, the input's gradient, the eval step's results,
+    whether the checkpoint's restore gave back this process's weights and
+    momentum (not checked with a fault), the mesh's layout, a digest of the gathered state and, from
+    process 0, the gathered state itself. ``fault='model_all_reduce'`` drops
+    the 'model' all-reduce of the column-parallel layers' input gradient (a
+    planted fault) for this call."""
+    from margipose_tpu_torch.models import create_model
+    from margipose_tpu_torch.parallel import mesh
+    from margipose_tpu_torch.train import checkpoint
+    from margipose_tpu_torch.train.schedules import make_optimiser
+    from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
+
+    grid = mesh.make_mesh(shape)
+    name = f'{grid.shape["data"]}x{grid.shape["model"]}' + (f'-{fault}' if fault else '')
+    model = create_model(desc)
+    model.load_state_dict(state_dict, strict=True)
+    mesh.shard_variables(model, grid)
+    state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0, **schedule))
+    local = mesh.shard_batch(batch, grid)
+    evaluated = make_eval_step('jsd', mesh=grid)(model, local)
+    local['input'] = local['input'].clone().requires_grad_()
+    real_backward = mesh._CopyToModel.backward
+    if fault == 'model_all_reduce':
+        mesh._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+    try:
+        metrics = make_train_step('jsd', mesh=grid)(state, local)
+    finally:
+        mesh._CopyToModel.backward = real_backward
+    round_trip = None
+    if fault is None:
+        ckpt_dir = os.path.join(out_dir, f'ckpt-{name}')
+        checkpoint.save_checkpoint(ckpt_dir, state, desc)
+        plain = create_model(desc)
+        restored = TrainState(mesh.shard_variables(plain, grid), make_optimiser(
+            '1cycle', plain.parameters(), 1.0, **schedule))
+        checkpoint.restore_checkpoint(ckpt_dir, restored)
+        live, back = (s.optimiser.state_dict() for s in (state, restored))
+        weights = restored.model.state_dict()
+        round_trip = (all(torch.equal(v, weights[k]) for k, v in model.state_dict().items())
+                      and restored.step == state.step and live['count'] == back['count']
+                      and all(torch.equal(a['momentum_buffer'], b['momentum_buffer'])
+                              for a, b in zip(live['optimiser']['state'].values(),
+                                              back['optimiser']['state'].values())))
+    full = mesh.full_state_dict(model)
+    digest = hashlib.sha256()
+    for key, value in full.items():
+        digest.update(key.encode() + value.numpy().tobytes())
+    torch.save({'model': full if rank == 0 else None, 'digest': digest.hexdigest(),
+                'loss': metrics['loss'], 'pred': metrics['pred'],
+                'grad_input': local['input'].grad, 'eval_loss': evaluated['loss'],
+                'eval_pred': evaluated['pred'], 'ddp': state.replica is not None,
+                'shape': grid.shape, 'coords': grid.coords,
+                'shardings': mesh.param_shardings(grid, model), 'round_trip': round_trip,
+                'local_shapes': {k: tuple(v.shape) for k, v in model.state_dict().items()}},
+               os.path.join(out_dir, f'{name}-{rank}.pt'))
 
 
 def _train_bin(out_dir, argv):
