@@ -144,12 +144,41 @@ Phases, each printing its own lines; any failure exits non-zero:
                    and all-gathers counted, every process's gathered weights
                    equal bit for bit, the step against the card's plain step
                    (phase 9's rules), the eval batch against plain eval.
+ 23. soak          the soaks (margipose_tpu_torch.soak) through the train
+                   bin in child processes: the full-schedule recipe
+                   (MargiPose 2 stages, resnet18, 128 px, batch 8, lr 0.2,
+                   device aug crop-ship onto 192 px, a checkpoint an epoch)
+                   on synthetic data, cut to 12 epochs of 8 steps,
+                   SIGKILLed once epoch 6 is saved and resumed; Chatterbox
+                   for 2 epochs of 20 steps at batch 16; each verified in
+                   this process (soak/verify.py: the 1cycle trajectory and
+                   shape, the optimiser's last applied lr and count, the
+                   restore at epoch T, a strict load and bin.eval_3d within
+                   1e-6 of the training process's eval of its live state),
+                   with both kernels once a step, the step times and save
+                   times printed; three planted faults (a resume one update
+                   short, BN statistics reset, an epoch's records removed)
+                   must each fail the verifier.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
 the result line {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result. The flagship's train paths run 4 steps; the
-later paths run 2-3 to keep the script near 7 minutes.
+later paths run 2-3, and phase 23 overlaps two of its runs, to keep the
+script near 10 minutes.
+
+    python3 chip_smoke.py --multi-gpu   (several cards)
+
+phase 20 across every card, phase 22 on the meshes (n/2, 2) and (1, n),
+and on four cards or more the launcher's two-node command rehearsed as two
+torchrun agents of n/2 workers (deploy/rehearsal.py), killed after the
+first checkpoint and resumed across both, held to one agent's step.
+
+    python3 chip_smoke.py --soak
+
+the soaks at full length: the 150-epoch schedule killed at epoch 75 and
+during epoch 110's save, Chatterbox for 6 epochs, each verified; on the
+fake corpus as well where h5py is installed.
 """
 
 from __future__ import annotations
@@ -183,6 +212,11 @@ KERNEL_SHAPES = [  # (G groups, B, J, H, W, sigma, pointer offset in floats)
     (12, 32, 17, 32, 32, 1.0, 0),  # the main paths': 4 stages x 3 planes at batch 32
     (12, 10, 17, 32, 32, 1.0, 0),  # the multicrop eval's: one example's 10 crops
     (3, 32, 17, 32, 32, 1.0, 0),   # Chatterbox's: 1 stage x 3 planes at batch 32
+    (6, 8, 17, 16, 16, 1.0, 0),    # the full-schedule soak's: 2 stages at 128 px, batch 8
+    (6, 4, 17, 16, 16, 1.0, 0),    # its eval's, at batch 4
+    (3, 16, 17, 32, 32, 1.0, 0),   # Chatterbox's soak at batch 16
+    (3, 4, 17, 32, 32, 1.0, 0),    # its eval's, at batch 4
+    (12, 8, 17, 32, 32, 1.0, 0),   # --multi-gpu's two-node rehearsal: 8 rows a process
     (1, 1, 17, 32, 32, 1.0, 0),    # one group (dsnt_jsd_fused), B = 1
     (3, 1, 13, 16, 24, 2.0, 0),    # the generic layout: non-square, sigma 2
     (2, 1, 13, 7, 9, 1.5, 0),      # the generic layout: H*W % 4 != 0
@@ -209,6 +243,10 @@ CROP_CANVAS = 384          # crop-ship canvas of the device_aug_canvas paths
 DDP_STEPS = 3              # the train bin's steps under the NCCL process group
 HYPERPARAM_ITERS = 8       # the LR range test's iterations at batch 32
 TP_TRACE_ROWS = 32         # global rows of phase 22's traced hybrid-mesh step
+SOAK_EPOCHS = 12           # phase 23's full schedule: 12 epochs of 8 steps at batch 8
+SOAK_KILL_AT = 6           # ... SIGKILLed once this epoch's checkpoint is saved
+SOAK_CHATTERBOX_EPOCHS = 2  # phase 23's Chatterbox soak: epochs of 20 steps at batch 16
+REHEARSAL_STEPS = 4        # --multi-gpu's two-node rehearsal: steps of 32 global rows
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -328,7 +366,8 @@ def shape_name(g, b, j, h, w, sigma, offset):
 def kernel_phase():
     """The grouped forward kernel against its plain version at every shape
     of KERNEL_SHAPES: the main paths' 12 groups at batch 32 and at the
-    multicrop eval's 10 crops, one group, the generic layout, H*W % 4 != 0
+    multicrop eval's 10 crops, the soaks' train and eval batches, the
+    two-node rehearsal's, one group, the generic layout, H*W % 4 != 0
     and unaligned pointers. Eager time is through
     dsnt_jsd_grouped (what the model calls: the autograd Function and the
     views); the graph time is the kernel's wrapper alone."""
@@ -2471,6 +2510,228 @@ def tensor_parallel_phase(model, meshes):
     return by_path
 
 
+def soak_report(label, exp_dir, name='soak'):
+    """The soak verifier on ``exp_dir``, run in this process (not the one
+    that trained), its lines printed, then the launches, step times and save
+    times the training process that ended recorded; raises on a FAIL or on
+    launches that are not one of each kernel a step. Returns the launches."""
+    from margipose_tpu_torch.soak import verify
+
+    checks = verify.verify(exp_dir, out=lambda line: phase(name, f'{label}: {line}'))
+    with open(os.path.join(exp_dir, 'soak_run.json')) as f:
+        record = json.load(f)
+    steps = record['step'] - record['start_step']
+    launches = record['launches']
+    ms = np.array(record['step_seconds']) * 1e3
+    copy_ms = np.array(record['save_copy_seconds']) * 1e3
+    write_ms = np.array(record['save_write_seconds']) * 1e3
+    phase(name, f'{label}: kernel launches {launches} in the {steps} steps of the training '
+                f'process that ended (counted from 0 in it), expected one of each a step; '
+                f'device ms a step: first {ms[0]:.3f}, then min {ms[1:].min():.3f}, p10 '
+                f'{np.percentile(ms[1:], 10):.3f}, median {np.median(ms[1:]):.3f}, p90 '
+                f'{np.percentile(ms[1:], 90):.3f}, p99 {np.percentile(ms[1:], 99):.3f}, max '
+                f'{ms[1:].max():.3f}; {len(copy_ms)} saves: host copy median '
+                f'{np.median(copy_ms):.1f} ms (the loop waits for it), write and swap median '
+                f'{np.median(write_ms):.1f} ms (in the background); process wall '
+                f'{record["wall_seconds"]:.1f} s')
+    if not checks.ok or steps < 2 or launches != {'dsnt_jsd_fwd': steps, 'dsnt_jsd_bwd': steps}:
+        raise AssertionError(f'the {label} soak: verifier ok {checks.ok}, launches {launches} '
+                             f'in {steps} steps')
+    return launches
+
+
+def soak_phase():
+    """Phase 23: the full-schedule soak cut to SOAK_EPOCHS epochs of 8 steps
+    on synthetic data (the recipe's model, batch, lr, device aug and
+    checkpoints), SIGKILLed once epoch SOAK_KILL_AT is saved and resumed;
+    then, side by side on the card, Chatterbox for SOAK_CHATTERBOX_EPOCHS
+    epochs and the planted faults' resume (so their step times share the
+    card; the full schedule's resumed run has it alone); each run verified
+    here, in a process that never held its trained state, and each planted
+    fault (a resume whose restored optimiser count is one update short, BN
+    running statistics reset in model-latest, an epoch's records removed)
+    made to fail the verifier on its own check. Returns the launches by
+    path (the training process that ended)."""
+    from margipose_tpu_torch.soak import faults, run, verify
+
+    t_phase = time.perf_counter()
+    out = os.path.join(WORK, 'soak')
+    shutil.rmtree(out, ignore_errors=True)
+    planted = os.path.join(out, 'planted')
+    overrides = [f'epochs={SOAK_EPOCHS}']
+    exp = run.run_recipe('full-schedule', 'synthetic', out, 'cuda', kill_at=SOAK_KILL_AT,
+                         overrides=overrides, keep_killed=True, timeout=600,
+                         log=lambda line: phase('soak', f'full schedule: {line}'))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cb = pool.submit(run.run_recipe, 'chatterbox', 'synthetic', out, 'cuda',
+                         overrides=[f'epochs={SOAK_CHATTERBOX_EPOCHS}'], timeout=600,
+                         log=lambda line: phase('soak', f'chatterbox: {line}'))
+        short = pool.submit(faults.count_off_by_one, exp + '.killed',
+                            os.path.join(planted, 'count'), 'full-schedule', 'synthetic', 'cuda',
+                            overrides, timeout=600)
+        by_path = {'soak_full_schedule': soak_report(f'full schedule, {SOAK_EPOCHS} epochs', exp)}
+        by_path['soak_chatterbox'] = soak_report(
+            f'chatterbox, {SOAK_CHATTERBOX_EPOCHS} epochs (beside a planted fault\'s run)',
+            cb.result())
+        made = {'count': short.result(),
+                'batch_norm': faults.batch_norm_reset(exp, os.path.join(planted, 'bn')),
+                'missing_epoch': faults.missing_epoch(exp, os.path.join(planted, 'epoch'),
+                                                      SOAK_KILL_AT)}
+    for kind, exp_dir in made.items():
+        checks = verify.verify(exp_dir, out=lambda line: None)
+        failed = [line for line in checks.lines if line.startswith('[FAIL]')]
+        phase('soak', f'planted fault {kind}: the verifier FAILs {len(failed)} check(s): '
+                      + ' | '.join(failed))
+        if checks.ok or not any(faults.CAUGHT_BY[kind] in line for line in failed):
+            raise AssertionError(f'the verifier missed the planted {kind} fault')
+    phase('soak', f'phase 23 took {time.perf_counter() - t_phase:.1f} s')
+    return by_path
+
+
+def soak_main():
+    """``python3 chip_smoke.py --soak``: the soaks at their full length on the
+    card. The 150-epoch schedule on synthetic data, SIGKILLed once epoch 75
+    is saved, resumed, SIGKILLed halfway through epoch 110's save, resumed
+    from ``state.old``; Chatterbox for 6 epochs; each verified; the same on
+    the fake corpus where h5py is installed."""
+    import importlib.util
+
+    from margipose_tpu_torch.soak import corpus, run
+
+    if not torch.cuda.is_available():
+        print('chip_smoke --soak: torch.cuda.is_available() is False; this mode needs a CUDA '
+              'card', file=sys.stderr)
+        return 1
+    kind, _ = device_phase()
+    build_phase()
+    datasets = ['synthetic']
+    if importlib.util.find_spec('h5py') is None:
+        phase('soak', 'the fake corpus is HDF5 and h5py is not installed here: the soaks run on '
+                      'synthetic data only')
+    else:
+        corpus.use_fake_corpus(os.path.join(WORK, 'soak-data'))
+        datasets.append('fake')
+    by_path = {}
+    for dataset in datasets:
+        out = os.path.join(WORK, f'soak-{dataset}')
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        exp = run.run_recipe('full-schedule', dataset, out, 'cuda', kill_at=75, kill_in_save=110,
+                             timeout=3000, log=lambda line: phase('soak', f'{dataset}: {line}'))
+        by_path[f'soak_full_schedule_{dataset}'] = soak_report(
+            f'{dataset}, full schedule, 150 epochs', exp)
+        phase('soak', f'{dataset}: the full schedule took {time.perf_counter() - t0:.1f} s wall')
+        t0 = time.perf_counter()
+        cb = run.run_recipe('chatterbox', dataset, out, 'cuda', timeout=3000,
+                            log=lambda line: phase('soak', f'{dataset}: chatterbox: {line}'))
+        by_path[f'soak_chatterbox_{dataset}'] = soak_report(f'{dataset}, chatterbox, 6 epochs', cb)
+        phase('soak', f'{dataset}: chatterbox took {time.perf_counter() - t0:.1f} s wall')
+    print(json.dumps({'launches_by_path': by_path}), flush=True)
+    print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
+                                             'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def two_node_phase(n):
+    """``--multi-gpu``: the launcher's multi-node command rehearsed on the
+    machine's n cards as two torchrun agents of n / 2 workers, each agent
+    with its own cards (``CUDA_VISIBLE_DEVICES``) and the argv
+    ``gpu_cluster.torchrun_argv`` gives pods 0 and 1 (``deploy/rehearsal.py``):
+    the train bin, float32, REHEARSAL_STEPS steps of 32 global rows (one an
+    epoch), SIGKILLed with every worker once the first checkpoint is saved,
+    resumed across both agents. Global ranks 0..n-1 each on
+    cuda:LOCAL_RANK of its agent's cards, only rank 0 writing, every
+    process's weights bit-equal after each step, both kernels once a step;
+    the first step within phase 9's rules of one agent's
+    ``--standalone --nproc-per-node n`` step (its first checkpoint: killed
+    and resumed the same way). Returns the launches."""
+    from margipose_tpu_torch.deploy import rehearsal
+    from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model
+    from margipose_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    half = n // 2
+    cards = [','.join(str(c) for c in range(k * half, (k + 1) * half)) for k in range(2)]
+    words = ['--device', 'cuda', 'train', 'with', 'margipose_model', 'synthetic',
+             'batch_size=32', 'train_examples=32', 'val_examples=0', 'val_datasets=[]',
+             "precision='float32'", "ship='float32'", 'checkpoint_every=1', 'seed=9']
+    out = os.path.join(WORK, 'two-node-out')
+    shutil.rmtree(out, ignore_errors=True)
+    exp = os.path.join(out, 'two-node')
+    launches = rehearsal.rehearse(
+        words + [f'epochs={REHEARSAL_STEPS}', f'out_dir={out}', 'experiment_id=two-node'],
+        os.path.join(WORK, 'two-node'), out, nodes=2, procs_per_node=half, cards=cards,
+        kill_at=1, exp_dir=exp, timeout=300, log=lambda line: phase('two nodes', line))
+    for i, processes in enumerate(launches, 1):
+        heads = sorted((p[0] for p in processes), key=lambda h: h['rank'])
+        steps = [[r for r in p if 'step' in r] for p in processes]
+        placed = sorted({(p[0]['rank'], p[0]['local_rank'], p[0]['visible'], r['device'], r['card'])
+                         for p, ss in zip(processes, steps) for r in ss})
+        writers = sorted({p[0]['rank'] for p in processes if any('write' in r for r in p)})
+        phase('two nodes', f'launch {i}: (global rank, local rank, CUDA_VISIBLE_DEVICES, device, '
+                           f'card) {placed}; processes that wrote under the output directory: '
+                           f'ranks {writers}')
+        if ([h['rank'] for h in heads] != list(range(n))
+                or any(h['world'] != n or h['local_rank'] != h['rank'] % half
+                       or h['visible'] != cards[h['rank'] // half] for h in heads)
+                or any(r['device'] != f'cuda:{p[0]["local_rank"]}'
+                       for p, ss in zip(processes, steps) for r in ss)
+                or len({r['card'] for ss in steps for r in ss}) != n or writers != [0]):
+            raise AssertionError(f'launch {i} of the two-node rehearsal: {heads}, {placed}, '
+                                 f'writers {writers}')
+        by_step = {}
+        for ss in steps:
+            for r in ss:
+                by_step.setdefault(r['step'], []).append(r)
+        for step, rs in sorted(by_step.items()):
+            # the kill may cut the killed launch's last step short in some
+            # processes; every process saw the steps a checkpoint followed
+            whole = len(rs) == n or (i < len(launches) and step > 1)
+            equal = len({r['digest'] for r in rs}) == 1
+            counts = {tuple(r['launches']) for r in rs}
+            phase('two nodes', f'launch {i}, step {step}: {len(rs)} processes, weights '
+                               f'bit-equal {equal}; kernel launches so far (fwd, bwd) {counts}')
+            if not (equal and whole):
+                raise AssertionError(f'the processes disagree after step {step}')
+        # each process's counts after its k-th step: k of each kernel
+        if any([tuple(r['launches']) for r in ss] != [(k, k) for k in range(1, len(ss) + 1)]
+               for ss in steps):
+            raise AssertionError(f'launch {i}: kernel launches not one of each a step')
+    resumed = [r['step'] for r in launches[-1][0] if 'step' in r]
+    if resumed[-1] != REHEARSAL_STEPS:
+        raise AssertionError(f'the resumed launch ended at step {resumed[-1]}')
+
+    # one agent of n workers, the same schedule (its lr depends on the
+    # run's length), killed after its first checkpoint too
+    one_out = os.path.join(WORK, 'one-agent-out')
+    shutil.rmtree(one_out, ignore_errors=True)
+    rehearsal.rehearse(
+        words + [f'epochs={REHEARSAL_STEPS}', f'out_dir={one_out}', 'experiment_id=one-agent'],
+        os.path.join(WORK, 'one-agent'), one_out, nodes=1, procs_per_node=n, kill_at=1,
+        exp_dir=os.path.join(one_out, 'one-agent'), timeout=300,
+        log=lambda line: phase('two nodes', f'one agent: {line}'))
+    first = [os.path.join(WORK, run, 'model-latest.killed') for run in ('two-node', 'one-agent')]
+    if any(ckpt.load_meta(ckpt_dir)['epoch'] != 1 for ckpt_dir in first):
+        raise AssertionError('a kill left a checkpoint past the first step; run again')
+    initial = {k: v.double() for k, v in create_model(
+        Default_MargiPose_Desc, generator=torch.Generator().manual_seed(9)).state_dict().items()}
+    got, want = ({k: v.double() for k, v in ckpt.load_payload(ckpt_dir)['model'].items()}
+                 for ckpt_dir in first)
+    share = worst_update_share(got, want, initial)
+    worst_buffer = max(((got[k] - want[k]).abs() / (1e-5 + 1e-4 * want[k].abs())).max().item()
+                       for k in want if 'running_' in k)
+    final = ckpt.load_payload(os.path.join(exp, 'model-latest'))
+    phase('two nodes', f'the first step of 32 global rows, two agents of {half} vs one agent of '
+                       f'{n}: worst parameter tensor at {share[0]:.4f} of 10% of its update + '
+                       f'1e-6 RMS ({share[1]}), worst BN buffer at {worst_buffer:.3g}; the resumed '
+                       f'run ended at step {final["step"]}, epoch '
+                       f'{ckpt.load_meta(os.path.join(exp, "model-latest"))["epoch"]}')
+    if not (share[0] <= 1 and worst_buffer <= 1 and final['step'] == REHEARSAL_STEPS):
+        raise AssertionError('the two-node step disagrees with one agent\'s')
+    phase('two nodes', f'took {time.perf_counter() - t_phase:.1f} s')
+    return {'two_node': {'dsnt_jsd_fwd': len(resumed), 'dsnt_jsd_bwd': len(resumed)}}
+
+
 def multi_gpu_main():
     """``python3 chip_smoke.py --multi-gpu``, on a machine with several
     cards: the build, phase 20 across every card (NCCL between them) and
@@ -2496,6 +2757,8 @@ def multi_gpu_main():
     by_path = distributed_phase(model, ckpt, n)
     by_path.update(tensor_parallel_phase(model, [(n // 2, 2, 'nccl', True),
                                                  (1, n, 'nccl', True)]))
+    if n >= 4:
+        by_path.update(two_node_phase(n))
     print(json.dumps({'launches_by_path': by_path}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': n}}),
           flush=True)
@@ -2538,6 +2801,7 @@ def main():
     by_path.update(distributed_phase(model, ckpt))
     by_path.update(cli_phase(model, ckpt))
     by_path.update(tensor_parallel_phase(model, [(1, 1, 'nccl', False), (1, 2, 'gloo', False)]))
+    by_path.update(soak_phase())
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]
@@ -2556,4 +2820,6 @@ if __name__ == '__main__':
         sys.exit(tp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:] == ['--multi-gpu']:
         sys.exit(multi_gpu_main())
+    if sys.argv[1:] == ['--soak']:
+        sys.exit(soak_main())
     sys.exit(main())

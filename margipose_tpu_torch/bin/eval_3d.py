@@ -340,7 +340,11 @@ def set_float32_parity_mode():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def main(argv=None):
+def main(argv=None, model=None):
+    """Evaluate ``--model``'s checkpoint as ``argv`` says; returns (rows,
+    stats). ``model``, a (module, model_desc) pair, is evaluated in place of
+    reading ``--model``: the soaks evaluate the live train state so
+    (``soak/child.py``)."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
     seed_all(12345)
     # cuDNN's deterministic algorithms, whatever an earlier train run in the
@@ -362,7 +366,11 @@ def main(argv=None):
     print(f'Input upload: {ship}')
     devices = eval_devices(args.num_devices, device, args.batch_size, args.multicrop)
 
-    model, model_desc = load_model(args.model, device)
+    if model is None:
+        model, model_desc = load_model(args.model, device)
+    else:
+        model, model_desc = model
+        model = model.to(device).eval()
     dataset = get_dataset(args.dataset, data_specs_for_desc(model_desc), use_aug=False)
     ship_specs = dataset.data_specs.input_specs if ship == 'uint8' else None
     if args.multicrop:
