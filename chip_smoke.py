@@ -159,6 +159,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                    times printed; three planted faults (a resume one update
                    short, BN statistics reset, an epoch's records removed)
                    must each fail the verifier.
+ 24. bench         the port's bench (python -m margipose_tpu_torch.bench,
+                   run here through bench.run_bench) on the flagship at full
+                   width: float32 inference at batch 32, the bf16 sweep over
+                   32, 64 and 128, batch-1 latency, train steps in bf16 and
+                   float32, the serving ceiling, BENCH_ITERS timed calls a
+                   segment, and bench_reference.py in its child process on
+                   the same card (TF32 off) for vs_baseline; its JSON line
+                   printed, every key present, every number finite,
+                   positive and plausible; no kernel launched by inference,
+                   batch 1 or serve, both kernels once a train step.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. Then one JSON line of per-kernel numbers, and last
@@ -247,6 +257,17 @@ SOAK_EPOCHS = 12           # phase 23's full schedule: 12 epochs of 8 steps at b
 SOAK_KILL_AT = 6           # ... SIGKILLed once this epoch's checkpoint is saved
 SOAK_CHATTERBOX_EPOCHS = 2  # phase 23's Chatterbox soak: epochs of 20 steps at batch 16
 REHEARSAL_STEPS = 4        # --multi-gpu's two-node rehearsal: steps of 32 global rows
+BENCH_ITERS = 5            # phase 24: timed calls a segment (the bench's own: FULL_ITERS)
+# phase 24: the range each number of the bench's line must fall in on an H100
+BENCH_PLAUSIBLE = {
+    'value': (50, 20000), 'infer_images_per_sec_float32': (50, 5000),
+    'train_images_per_sec': (10, 5000), 'train_images_per_sec_float32': (10, 5000),
+    'mfu': (1e-3, 1), 'train_mfu': (1e-3, 1), 'infer_latency_ms_b1': (1, 1000),
+    'serve_images_per_sec': (10, 20000), 'serve_batcher_overhead_frac': (0, 1),
+    'serve_device_forward_frac': (0, 2), 'serve_upload_mb_per_sec': (0.5, 1e5),
+    'vs_baseline': (0.25, 4), 'flops_per_image': (0.94 * 51.3e9, 1.06 * 51.3e9),
+    'peak_memory_gib': (0.5, 80), 'power_limit_w': (100, 1000),
+    'reference_infer_images_per_sec': (10, 5000), 'reference_train_images_per_sec': (1, 5000)}
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -574,44 +595,13 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
-@torch.no_grad()
-def randomize_batch_norm(model, images, generator):
-    """BN running stats from one train-mode pass over ``images``, perturbed
-    at random; the last residual block of every column scaled down, so the
-    heatmaps are neither flat nor one-hot (as with trained weights)."""
-    calibrate_bn(model, images, generator)
-    for plane in ('xy', 'zy', 'xz'):
-        for column in getattr(model.inner, f'{plane}_hm_cnns'):
-            last = column.up_layers[4]
-            for bn in (last.module[4], last.shortcut[1]):
-                bn.weight *= 0.5
-                bn.bias *= 0.5
-
-
-@torch.no_grad()
-def calibrate_bn(model, images, generator):
-    """BN running stats from one train-mode pass over ``images``, perturbed
-    at random."""
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    for bn in bns:
-        bn.reset_running_stats()
-        bn.momentum = None  # cumulative average: one pass gives the batch stats
-    model.train()(images)
-    model.eval()
-    for bn in bns:
-        bn.momentum = 0.1
-        n = bn.num_features
-        bn.running_mean += 0.05 * torch.randn(n, generator=generator).to(bn.running_mean)
-        bn.running_var *= (0.8 + 0.45 * torch.rand(n, generator=generator)).to(bn.running_var)
-
-
 def flagship(device):
-    from margipose_tpu_torch.models import Default_MargiPose_Desc, create_model
+    """The flagship from seed 0, BN statistics calibrated and perturbed, the
+    columns' last blocks scaled down: the bench's model (bench.seeded_model)."""
+    from margipose_tpu_torch.bench import seeded_model
+    from margipose_tpu_torch.models import Default_MargiPose_Desc
 
-    g = torch.Generator().manual_seed(0)
-    model = create_model(Default_MargiPose_Desc, generator=g).to(device)
-    randomize_batch_norm(model, torch.randn(8, 3, 256, 256, generator=g).to(device), g)
-    return model
+    return seeded_model(Default_MargiPose_Desc, device)
 
 
 def main_path_phase(model):
@@ -1304,6 +1294,7 @@ def stems_phase():
     weights with calibrated BN: card against CPU at batch 2, a batch of 32
     timed; resnet34 traced; then the resnet34 train path with a grafted
     backbone."""
+    from margipose_tpu_torch.bench import randomize_batch_norm
     from margipose_tpu_torch.models import create_model
 
     for variant in STEMS:
@@ -1442,6 +1433,7 @@ def eval_bin_phase(name, ckpt, precision, ship, examples=64):
 def chatterbox(device):
     """Chatterbox from seeded random weights: calibrated, perturbed BN stats
     and the heads' last convolutions scaled down (soft heatmaps)."""
+    from margipose_tpu_torch.bench import calibrate_bn
     from margipose_tpu_torch.models import Default_Chatterbox_Desc, create_model
 
     g = torch.Generator().manual_seed(30)
@@ -2588,6 +2580,54 @@ def soak_phase():
     return by_path
 
 
+def bench_phase():
+    """Phase 24: the port's bench (margipose_tpu_torch.bench.run_bench) on
+    the flagship at full width: its full sweep, BENCH_ITERS timed calls a
+    segment, bench_reference.py for real in its child process; the line
+    printed. Every key present; every number finite, positive and within
+    BENCH_PLAUSIBLE; the served batches full. The inference, batch-1 and
+    serve segments launch no kernel, each train segment both once a step.
+    Returns the launches by path."""
+    from margipose_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    counters = reset_counts()
+    (line, records), _ = capture_stdout(lambda: bench.run_bench('cuda', iters=BENCH_ITERS))
+    launches = read_counts(counters)
+    for name, record in records.items():
+        phase('bench', f'segment {name}: {record}')
+    numbers = {k: v for k, v in line.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    wrong = [k for k in bench.LINE_KEYS if k not in line or line[k] is None]
+    wrong += [k for k, v in numbers.items() if not (math.isfinite(v) and v > 0)]
+    wrong += [k for k, (lo, hi) in BENCH_PLAUSIBLE.items() if not lo <= numbers.get(k, lo) <= hi]
+    if line['serve_batch_occupancy'] < 0.95 * 32:  # the base batch: the drains keep it full
+        wrong.append('serve_batch_occupancy')
+    if (line['device_name'], line['torch_version']) != (torch.cuda.get_device_name(0),
+                                                         torch.__version__):
+        wrong.append('device_name')
+    segments = {'bench_infer': ('infer_float32', 'infer_bfloat16'), 'bench_b1': ('infer_b1',),
+                'bench_serve': ('serve',), 'bench_train': ('train_bfloat16', 'train_float32')}
+    by_path = {path: {k: sum(records[name]['launches'][k] for name in names) for k in launches}
+               for path, names in segments.items()}
+    for path in ('bench_infer', 'bench_b1', 'bench_serve'):
+        if any(by_path[path].values()):
+            wrong.append(f'{path} launched {by_path[path]}')
+    trains = [records[name] for name in segments['bench_train']]
+    for record in trains:
+        if record['launches'] != dict.fromkeys(launches, record['calls']):
+            wrong.append(f'a train segment launched {record["launches"]} in '
+                         f'{record["calls"]} steps')
+    if launches != by_path['bench_train']:
+        wrong.append(f'the bench launched {launches} in all')
+    phase('bench', f'kernel launches {launches}: train {sum(r["calls"] for r in trains)} steps, '
+                   f'inference, batch 1 and serve none; phase 24 took '
+                   f'{time.perf_counter() - t0:.1f} s')
+    if wrong:
+        raise AssertionError(f'the bench\'s line or launches are wrong: {wrong}')
+    return by_path
+
+
 def soak_main():
     """``python3 chip_smoke.py --soak``: the soaks at their full length on the
     card. The 150-epoch schedule on synthetic data, SIGKILLed once epoch 75
@@ -2802,6 +2842,7 @@ def main():
     by_path.update(cli_phase(model, ckpt))
     by_path.update(tensor_parallel_phase(model, [(1, 1, 'nccl', False), (1, 2, 'gloo', False)]))
     by_path.update(soak_phase())
+    by_path.update(bench_phase())
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]

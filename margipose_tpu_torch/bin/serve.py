@@ -249,12 +249,17 @@ def make_runner(ckpt_path: str, precision: str, device='cuda'):
     -> float32 xyz [B,J,3]`` as numpy. Returns (runner, data_specs,
     model_desc)."""
     device = resolve_device(device)
+    model, model_desc = load_model(ckpt_path, device)
+    specs = data_specs_for_desc(model_desc)
+    return model_runner(model, specs.input_specs, precision, device), specs, model_desc
+
+
+def model_runner(model, input_specs, precision: str, device):
+    """``make_runner``'s forward of a model already on ``device`` (the
+    bench's serving segment runs it on a model made from a seed)."""
     compute_dtype = resolve_dtype(precision)
     if compute_dtype in (None, torch.float32):
         set_float32_parity_mode()
-    model, model_desc = load_model(ckpt_path, device)
-    specs = data_specs_for_desc(model_desc)
-    input_specs = specs.input_specs
 
     def runner(batch_u8: np.ndarray) -> np.ndarray:
         # inference_mode and autocast are thread-local: entered here, in the
@@ -265,7 +270,7 @@ def make_runner(ckpt_path: str, precision: str, device='cuda'):
                 xyz, _ = model(images)
             return xyz.float().cpu().numpy()  # waits for the card
 
-    return runner, specs, model_desc
+    return runner
 
 
 def create_server(ckpt_path: str, host: str = '127.0.0.1', port: int = 0,

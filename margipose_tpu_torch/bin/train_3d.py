@@ -233,7 +233,7 @@ def run_training(cfg: dict, device='cuda') -> dict:
         resume_meta = ckpt.load_meta(cfg['resume'])
         model_desc = resume_meta['model_desc']
     elif cfg['weights'] is not None:
-        init_model, model_desc = load_model(cfg['weights'])
+        init_model, model_desc = load_model(cfg['weights'], 'cpu')  # copied below
         init_weights = init_model.state_dict()
     model = create_model(model_desc, generator=torch.Generator().manual_seed(cfg['seed']))
     if init_weights is not None:

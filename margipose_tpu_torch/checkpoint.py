@@ -15,6 +15,7 @@ from os import path
 
 import torch
 
+from margipose_tpu_torch import resolve_device
 from margipose_tpu_torch.models import create_model
 from margipose_tpu_torch.train import checkpoint as train_checkpoint
 
@@ -24,10 +25,13 @@ def save_model(path: str, model: torch.nn.Module, model_desc: dict) -> None:
     torch.save({"state_dict": state, "model_desc": model_desc}, path)
 
 
-def load_model(model_file: str, device="cpu"):
+def load_model(model_file: str, device="cuda"):
     """Returns (model in eval mode on ``device``, model_desc) from a ``.pth``
     file or a train-state directory. The weights load with ``strict=True``:
-    a missing or surplus key is an error."""
+    a missing or surplus key is an error. ``device`` goes through
+    ``resolve_device``: the card unless the caller asks for the CPU, and an
+    error where there is no card."""
+    device = resolve_device(device)
     if path.isdir(model_file):
         model_desc = train_checkpoint.load_meta(model_file)["model_desc"]
         state_dict = train_checkpoint.load_payload(model_file)["model"]

@@ -49,7 +49,7 @@ MASTER_PORT = 29500
 OUT_DIR = '/app/out'
 
 SETUP_CMDS = (
-    "sudo apt-get install -y g++ || true && "
+    "sudo apt-get install -y g++ ffmpeg || true && "
     "pip install numpy scipy pillow h5py pandas tabulate tqdm && "
     f"pip install --no-deps -e {REMOTE_DIR}"
 )

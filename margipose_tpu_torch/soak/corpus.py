@@ -5,17 +5,28 @@ Port of ``scripts/make_soak_corpus.py``, through the port's own
 that two soaks never meet a corpus the other one wrote differently. The
 corpus is HDF5, so it needs ``h5py``; the soaks' ``synthetic`` variants need
 no corpus.
+
+The corpus counts as made only once its last part is on disk: a hidden
+``.complete`` file (so that the corpus's files stay the script's), written
+after every generator has returned. A generation that stopped part-way
+(killed, or a generator that raised) leaves no such file, and the next call
+removes what it left and generates it all again. (The JAX package's script
+tests only ``mpi3d/train``, so a corpus cut off after its first part passes
+there for whole.)
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from os import path
 
 from margipose_tpu_torch.data.fake_mpi3d import generate_fake_mpi3d
 from margipose_tpu_torch.data.fakes import generate_fake_mpii
 
 ROOT = path.dirname(path.dirname(path.dirname(path.abspath(__file__))))
+PARTS = ('mpi3d', 'mpii')  # every directory the corpus writes under its base
+SENTINEL = '.complete'     # written last: the corpus is whole
 
 
 def default_dir() -> str:
@@ -28,15 +39,20 @@ def make_soak_corpus(base: str | None = None) -> str:
     is there already; returns ``base``, the ``MARGIPOSE_BASE_DATA_DIR`` of
     the soaks' ``fake`` variants."""
     base = base or default_dir()
-    if path.isdir(path.join(base, 'mpi3d', 'train')):
+    sentinel = path.join(base, SENTINEL)
+    if path.isfile(sentinel):
         print(f'soak corpus already at {base}')
         return base
+    for part in PARTS:  # what an interrupted generation left
+        shutil.rmtree(path.join(base, part), ignore_errors=True)
     # larger than the test fakes so long soaks see some variety
     generate_fake_mpi3d(path.join(base, 'mpi3d', 'train'),
                         seqs=((1, 1), (2, 1)), camera_ids=(0, 2), n_frames=6)
     generate_fake_mpi3d(path.join(base, 'mpi3d', 'val'),
                         seqs=((3, 1),), camera_ids=(0,), n_frames=4, seed=1)
     generate_fake_mpii(path.join(base, 'mpii'), n_train=16, n_val=4, img_size=512)
+    with open(sentinel, 'w'):
+        pass
     print(f'soak corpus at {base}')
     return base
 

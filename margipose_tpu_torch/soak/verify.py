@@ -192,7 +192,7 @@ def check_restore(exp_dir, check, device=None):
     if device is not None:
         argv[argv.index('--device') + 1] = device
     try:
-        load_model(latest)
+        load_model(latest, 'cpu')  # only that it loads strictly
     except (RuntimeError, KeyError) as exc:
         check('model-latest strict-loads in a fresh process', False, str(exc)[:200])
         return

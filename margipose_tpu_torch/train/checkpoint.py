@@ -3,7 +3,8 @@
 Counterpart of ``margipose_tpu/train/checkpoint.py:62-220``. A checkpoint is a directory::
 
     <ckpt_dir>/state/train_state.pt   model state_dict, optimiser state, step
-    <ckpt_dir>/meta.json              model_desc, epoch, train datasets
+    <ckpt_dir>/state/meta.json        model_desc, epoch, train datasets
+    <ckpt_dir>/meta.json              a copy of the above, for readers
 
 The full state is saved (the reference saved but never restored optimiser
 state and epoch; reference: src/margipose/bin/train_3d.py:285-291,374-382).
@@ -11,6 +12,20 @@ A save writes ``state.next`` and swaps it in with renames, keeping the
 previous ``state`` as ``state.old`` until the new one is on disk, so a
 process killed mid-save never loses the last good checkpoint: restore falls
 back to ``state.old``.
+
+Here the port deliberately departs from the JAX package's order
+(``margipose_tpu/train/checkpoint.py:85-97``), which has two windows in
+which a kill leaves a wrong or no checkpoint:
+
+  * the meta travels inside the state directory, written before the swap,
+    so a payload and its meta are one unit. JAX replaces the top-level
+    ``meta.json`` after the swap, and a kill between the two pairs epoch
+    k+1's state with epoch k's meta: the resume trains an epoch too many.
+    ``load_meta``, ``load_payload`` and so ``restore_checkpoint`` and
+    ``checkpoint.load_model`` all read the directory ``_state_dir`` picks;
+  * ``state.old`` is removed only while a complete ``state`` exists. JAX
+    removes it first, so a save after a resume from ``state.old`` (``state``
+    missing) had a window with neither on disk.
 
 Under a process group of several processes all of them call
 ``save_checkpoint``, process 0 alone writes and swaps, fenced by barriers
@@ -38,6 +53,7 @@ import torch
 from margipose_tpu_torch.parallel import mesh
 
 STATE_FILE = 'train_state.pt'
+META_FILE = 'meta.json'
 
 
 def _to_host(obj):
@@ -52,6 +68,13 @@ def _to_host(obj):
     return obj
 
 
+def _write_json(file: str, obj: dict) -> None:
+    """``obj`` to ``file`` through a temporary name and a rename."""
+    with open(file + '.tmp', 'w') as f:
+        json.dump(obj, f, indent=2, sort_keys=True)
+    os.replace(file + '.tmp', file)
+
+
 def _write_and_swap(ckpt_dir: str, payload: dict, meta: dict):
     nxt = path.join(ckpt_dir, 'state.next')
     old = path.join(ckpt_dir, 'state.old')
@@ -60,14 +83,12 @@ def _write_and_swap(ckpt_dir: str, payload: dict, meta: dict):
         shutil.rmtree(stale, ignore_errors=True)
     os.makedirs(nxt)
     torch.save(payload, path.join(nxt, STATE_FILE))
-    shutil.rmtree(old, ignore_errors=True)
-    if path.isdir(final):
+    _write_json(path.join(nxt, META_FILE), meta)
+    if path.isdir(final):  # else keep state.old, the only complete state, until the swap
+        shutil.rmtree(old, ignore_errors=True)
         os.rename(final, old)
     os.rename(nxt, final)
-    meta_tmp = path.join(ckpt_dir, 'meta.json.tmp')
-    with open(meta_tmp, 'w') as f:
-        json.dump(meta, f, indent=2, sort_keys=True)
-    os.replace(meta_tmp, path.join(ckpt_dir, 'meta.json'))
+    _write_json(path.join(ckpt_dir, META_FILE), meta)
     shutil.rmtree(old, ignore_errors=True)
 
 
@@ -140,7 +161,9 @@ def save_weights(ckpt_dir: str, model: torch.nn.Module, model_desc: dict) -> Non
                         {'model_desc': model_desc})
 
 
-def _state_file(ckpt_dir: str) -> str:
+def _state_dir(ckpt_dir: str) -> str:
+    """``state``, or ``state.old`` where a save was interrupted before its
+    swap: the one complete state on disk."""
     state_dir = path.join(ckpt_dir, 'state')
     if not path.isdir(state_dir):
         old = path.join(ckpt_dir, 'state.old')
@@ -148,7 +171,11 @@ def _state_file(ckpt_dir: str) -> str:
             print(f"checkpoint: '{state_dir}' missing (interrupted save?); "
                   f"falling back to '{old}'")
             state_dir = old
-    return path.join(state_dir, STATE_FILE)
+    return state_dir
+
+
+def _state_file(ckpt_dir: str) -> str:
+    return path.join(_state_dir(ckpt_dir), STATE_FILE)
 
 
 def load_payload(ckpt_dir: str) -> dict:
@@ -170,5 +197,6 @@ def restore_checkpoint(ckpt_dir: str, state) -> None:
 
 
 def load_meta(ckpt_dir: str) -> dict:
-    with open(path.join(ckpt_dir, 'meta.json')) as f:
+    """The meta saved with the state ``load_payload`` reads."""
+    with open(path.join(_state_dir(path.abspath(ckpt_dir)), META_FILE)) as f:
         return json.load(f)

@@ -1,6 +1,6 @@
 """Train and eval steps, on one device or under a process group.
 
-Counterpart of ``margipose_tpu/train/steps.py:75-185``: forward in train
+Counterpart of ``margipose_tpu/train/steps.py:75-208``: forward in train
 mode, masked 2D/3D loss through the fused DSNT+JSD head, backward (the
 head's gradient is the CUDA backward kernel on the card), optimiser update
 and BN running-stat update. With ``compute_dtype`` bfloat16 the forward and
@@ -44,7 +44,11 @@ from torch.nn.parallel import DistributedDataParallel
 
 from margipose_tpu_torch.bin.eval_3d import make_forward
 from margipose_tpu_torch.models.margipose import margipose_masked_loss
-from margipose_tpu_torch.parallel.mesh import average_replicated_gradients, group_active
+from margipose_tpu_torch.parallel.mesh import (
+    ColumnParallelConv,
+    average_replicated_gradients,
+    group_active,
+)
 from margipose_tpu_torch.parallel.precision import compute_dtype_scope
 from margipose_tpu_torch.train.schedules import ScheduledOptimiser
 
@@ -115,3 +119,35 @@ def make_eval_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
         return {'loss': loss, 'pred': pred}
 
     return eval_step
+
+
+def make_forward_fn(model, compute_dtype=None, mesh=None):
+    """``forward(images) -> xyz``: inference alone, ``images`` [B, 3, H, W]
+    float32 on the model's device to float32 coordinates [B, J, 3], in eval
+    mode under ``torch.inference_mode()`` and ``compute_dtype_scope``. No
+    loss, so no loss-head kernel.
+
+    Counterpart of ``margipose_tpu/train/steps.py:188-208``. ``mesh`` as in
+    ``make_train_step``; the forward needs no collective on either kind.
+    Where JAX runs a pure data-parallel mesh under ``shard_map`` (images
+    split over 'data', weights replicated), each process passes its own
+    rows (``parallel.mesh.shard_batch``). On a hybrid mesh ('model' > 1)
+    ``model`` must be the one ``parallel.mesh.shard_variables`` cut: its
+    ``ColumnParallelConv``s gather over 'model', and JAX's GSPMD path does
+    the same. The model is put in eval mode here, and again by a call that
+    finds it in train mode (a per-call ``eval()`` walks every module, which
+    costs milliseconds on the flagship)."""
+    if (mesh is not None and mesh.shape['model'] > 1
+            and not any(isinstance(m, ColumnParallelConv) for m in model.modules())):
+        raise ValueError(f"a mesh with 'model' = {mesh.shape['model']} needs the model "
+                         'parallel.mesh.shard_variables placed on it')
+    model.eval()
+
+    def forward(images):
+        if model.training:
+            model.eval()
+        with torch.inference_mode(), compute_dtype_scope(compute_dtype, images.device):
+            xyz, _ = model(images)
+        return xyz.float()
+
+    return forward

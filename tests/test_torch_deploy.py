@@ -159,3 +159,32 @@ def test_two_node_rehearsal_killed_and_resumed_across_both_agents(tmp_path):
     assert _check_two_agents(killed, out)[0] == 1
     assert _check_two_agents(resumed, out)[-1] == 6
     assert ckpt.load_payload(os.path.join(out, 'two', 'model-latest'))['step'] == 6
+
+
+def test_the_image_and_the_vm_setup_install_ffmpeg(capsys):
+    """``margipose_torch_preprocess_mpi3d`` extracts the train/val videos'
+    frames with ffmpeg and raises without it, so the image and the VM setup
+    install it beside g++, as the JAX package's ``Dockerfile`` and
+    ``deploy/tpu_vm.py`` do."""
+    with open(os.path.join(DEPLOY, 'Dockerfile')) as f:
+        apt = re.search(r'apt-get install -y --no-install-recommends ([^\\\n]+)', f.read())[1]
+    assert apt.split() == ['g++', 'ffmpeg']
+    assert 'apt-get install -y g++ ffmpeg ' in gpu_cluster.SETUP_CMDS
+    assert gpu_cluster.main(['--name', 'vm', '--dry-run', '--', *COMMAND]) == 0
+    setup = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith('+ gcloud compute ssh') and 'apt-get' in line]
+    assert len(setup) == 1 and 'g++ ffmpeg' in setup[0]
+
+
+def test_the_image_pins_the_torch_its_comment_names():
+    """The base image's tag is the torch and CUDA series the comment above
+    it names, the one the port runs on (``torch.__version__`` and
+    ``torch.version.cuda`` on the card)."""
+    with open(os.path.join(DEPLOY, 'Dockerfile')) as f:
+        text = f.read()
+    tag = re.search(r'^FROM pytorch/pytorch:(\d+\.\d+\.\d+)-cuda(\d+)\.(\d+)-cudnn9-devel$',
+                    text, re.M)
+    named = re.findall(r'^#.*\btorch (\d+\.\d+\.\d+)\+cu(\d+)\b', text, re.M)
+    assert tag and len(named) == 1, (tag, named)
+    assert named[0] == (tag[1], tag[2] + tag[3])
+    assert re.search(rf'^#.*\bCUDA {tag[2]}\.{tag[3]} nvcc\b', text, re.M)

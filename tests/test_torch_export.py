@@ -59,7 +59,7 @@ def test_jax_torch_export_loads_into_the_port(source, tmp_path):
     jax_checkpoint.save_model(ckpt, variables, desc)
     pth = str(tmp_path / 'from_jax.pth')
     jax_export_model.main(['export_model', '-i', ckpt, '-o', pth, '-f', 'torch'])
-    model, model_desc = load_model(pth)
+    model, model_desc = load_model(pth, 'cpu')
     assert model_desc == desc
     _assert_state_dicts_equal(model.state_dict(), state_dict_from_jax(variables))
     _assert_state_dicts_equal(model.state_dict(), torch.load(pth)['state_dict'])
@@ -85,7 +85,7 @@ def test_port_native_export_round_trips(source, tmp_path):
     desc, _, pth = source
     out = tmp_path / 'native'
     _export(pth, out, 'native')
-    model, model_desc = load_model(str(out))
+    model, model_desc = load_model(str(out), 'cpu')
     assert model_desc == desc
     _assert_state_dicts_equal(model.state_dict(), torch.load(pth)['state_dict'])
 
@@ -95,7 +95,7 @@ def test_port_program_export_matches_the_eager_forward(source, tmp_path):
     out = tmp_path / 'model.pt2'
     _export(pth, out, 'export')
     program = torch.export.load(str(out)).module()
-    model, _ = load_model(pth)
+    model, _ = load_model(pth, 'cpu')
     x = torch.from_numpy(np.random.RandomState(0).randn(1, 3, 64, 64).astype(np.float32))
     with torch.inference_mode():
         want = model(x)[0]

@@ -65,7 +65,7 @@ def test_infer_image_matches_jax(exported, multicrop):
     image = PIL.Image.open(IMAGE)
     jax_inp, jax_coords = jax_infer.infer_image(jax_model, variables, image, desc,
                                                 multicrop=multicrop)
-    model, model_desc = load_model(path)
+    model, model_desc = load_model(path, 'cpu')
     inp, coords = infer_single.infer_image(model, image, model_desc, multicrop=multicrop,
                                            device='cpu')
     assert inp.shape == (64, 64, 3) and coords.shape == (17, 3)

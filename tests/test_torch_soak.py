@@ -130,7 +130,7 @@ def test_the_soaks_checkpoint_gives_the_jax_forward(soaked, tmp_path):
     from margipose_tpu_torch.checkpoint import load_model, save_model
 
     killed, _ = soaked
-    model, desc = load_model(os.path.join(killed, 'model-latest'))
+    model, desc = load_model(os.path.join(killed, 'model-latest'), 'cpu')
     pth = str(tmp_path / 'soak.pth')
     save_model(pth, model, desc)
     jax_model, variables, jax_desc = import_torch_model(pth)
@@ -193,6 +193,38 @@ def test_corpus_equals_the_jax_scripts_and_the_fake_recipe_trains(tmp_path, monk
     assert checks.ok, checks.lines
     with open(os.path.join(exp_dir, 'config.json')) as f:
         assert json.load(f)['train_datasets'] == ['mpi3d-trainval', 'mpii-trainval']
+
+
+def test_an_interrupted_corpus_generation_is_redone(tmp_path, monkeypatch):
+    """A generation that stops after ``mpi3d/train`` (the MPII generator
+    raises) leaves a corpus that is not taken for whole: the next call
+    removes what it left and runs every generator again."""
+    calls = []
+
+    def fake(name):
+        def generate(out_dir, **_):
+            calls.append(name)
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f'{name}-{len(calls)}'), 'w'):
+                pass
+        return generate
+
+    def interrupted(out_dir, **_):
+        calls.append('mpii')
+        raise OSError('stopped after mpi3d')
+
+    base = str(tmp_path / 'corpus')
+    monkeypatch.setattr(corpus, 'generate_fake_mpi3d', fake('mpi3d'))
+    monkeypatch.setattr(corpus, 'generate_fake_mpii', interrupted)
+    with pytest.raises(OSError, match='stopped after mpi3d'):
+        corpus.make_soak_corpus(base)
+    assert calls == ['mpi3d', 'mpi3d', 'mpii']
+    assert os.path.isdir(os.path.join(base, 'mpi3d', 'train'))
+    monkeypatch.setattr(corpus, 'generate_fake_mpii', fake('mpii'))
+    assert corpus.make_soak_corpus(base) == base
+    assert calls[3:] == ['mpi3d', 'mpi3d', 'mpii']
+    assert _files(base) == ['mpi3d/train/mpi3d-4', 'mpi3d/val/mpi3d-5', 'mpii/mpii-6']
+    assert corpus.make_soak_corpus(base) == base and len(calls) == 6  # whole now
 
 
 @pytest.mark.slow

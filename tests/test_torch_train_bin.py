@@ -78,7 +78,7 @@ def test_train_bin_writes_metrics_and_a_checkpoint_eval_reads(first_run):
     assert meta['epoch'] == 2 and meta['train_datasets'] == ['synthetic-16']
     assert sorted(os.listdir(os.path.join(run_dir, 'model-latest'))) == ['meta.json', 'state']
 
-    model, desc = load_model(os.path.join(run_dir, 'model-latest'))
+    model, desc = load_model(os.path.join(run_dir, 'model-latest'), 'cpu')
     assert desc['settings']['n_stages'] == 1 and not model.training
     rows, stats = eval_3d.main(['--model', os.path.join(run_dir, 'model-latest'),
                                 '--dataset', 'synthetic-4', '--batch-size', '2',

@@ -108,7 +108,7 @@ def test_chatterbox_model_preset_trains(tmp_path):
                             "val_datasets=['synthetic-2@1']", f'out_dir={tmp_path}',
                             'experiment_id=cb'])
     assert result['step'] == 1 and np.isfinite(result['train_loss'])
-    model, desc = load_model(os.path.join(str(tmp_path), 'cb', 'model-latest'))
+    model, desc = load_model(os.path.join(str(tmp_path), 'cb', 'model-latest'), 'cpu')
     assert isinstance(model, ChatterboxModel) and desc['type'] == 'chatterbox'
     with open(os.path.join(str(tmp_path), 'cb', 'metrics.jsonl')) as f:
         assert np.isfinite(json.loads(f.readline())['val_loss'])
