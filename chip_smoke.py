@@ -34,7 +34,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                    model-latest checkpoint, which bin.eval_3d then reads;
                    both kernels must have launched once a step (and the
                    forward once a validation batch);
-  8. train trace   torch.profiler over one train step at batch 32;
+  8. train trace   torch.profiler over one train step at batch 32, with the
+                   step's launches and device idle time under each of
+                   its spans (margipose_tpu_torch.tracing);
   9. train parity  one train step at batch 2 on the card against the CPU,
                    and two steps on the card with a planted fault (one
                    example's loss dropped, one batch norm's gradients
@@ -636,9 +638,10 @@ def main_path_phase(model):
 def profiled(fn):
     """One call of ``fn`` (after a warm-up) timed by CUDA events alone, and
     one under torch.profiler: (device kernel events by name, the kernels'
-    busy ms, the unprofiled window's ms). The profiler adds host time to
-    every launch, so only the unprofiled window says how long the device
-    waits for the host. The events are empty where the profiler saw no
+    busy ms, the unprofiled window's ms, ``span_breakdown``'s launches and
+    idle ms under each program span, {} where none ran). The profiler adds
+    host time to every launch, so only the unprofiled window says how long
+    the device waits for the host. The events are empty where the profiler saw no
     device activity. Ranges the host names (``record_function``:
     ``nccl:all_reduce``, ``DistributedDataParallel.forward``) also carry
     device time, that of the kernels inside them: they are left out, so no
@@ -661,7 +664,53 @@ def profiled(fn):
     events = [e for e in averages if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0 and e.key not in host_ranges]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return events, busy_ms, start.elapsed_time(end)
+    return (events, busy_ms, start.elapsed_time(end),
+            span_breakdown(prof.profiler.kineto_results.events()))
+
+
+def span_breakdown(raw):
+    """The profiled call's kernel launches and device idle ms under each
+    program span (``margipose_tpu_torch.tracing``), from the profiler's raw
+    events: {span: [launches, idle ms]}, {} where no span ran, ``(none)``
+    for launches outside every span. A launch counts under the innermost span whose interval
+    holds its start (the autograd engine's thread launches while the main
+    thread is in ``train.backward``); a stretch inside the outermost span
+    with no device activity counts under the innermost span at its middle."""
+    from torch.autograd import DeviceType
+
+    from margipose_tpu_torch import tracing
+
+    spans, launches, device, host_names = [], [], [], set()
+    for e in raw:
+        start, end = e.start_ns(), e.start_ns() + e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            device.append((start, end, e.name()))
+            continue
+        host_names.add(e.name())
+        if e.name() in tracing.SPANS:
+            spans.append((start, end, e.name()))
+        elif e.name().startswith(tracing.LAUNCHES):
+            launches.append(start)
+    if not spans:
+        return {}
+
+    def innermost(t):
+        inside = [s for s in spans if s[0] <= t < s[1]]
+        return max(inside, key=lambda s: (s[0], -s[1]))[2] if inside else '(none)'
+
+    out = {name: [0, 0.0] for name in tracing.SPANS + ('(none)',)}
+    for t in launches:
+        out[innermost(t)][0] += 1
+    lo, hi = min(s[0] for s in spans), max(s[1] for s in spans)
+    cursor = lo
+    for s, e, _ in sorted(d for d in device if d[2] not in host_names):
+        if s > cursor and cursor < hi:
+            gap_end = min(s, hi)
+            out[innermost((cursor + gap_end) // 2)][1] += (gap_end - cursor) / 1e6
+        cursor = max(cursor, e)
+    if hi > cursor:
+        out[innermost((cursor + hi) // 2)][1] += (hi - cursor) / 1e6
+    return out
 
 
 def kernel_ms(events, words):
@@ -717,7 +766,7 @@ def trace_phase(model, precision='float32', name='trace'):
     def step():
         forward(batch['input'], batch['target'], batch['joint_mask'], batch['valid_depth'])
 
-    events, busy, window = profiled(step)
+    events, busy, window, _ = profiled(step)
     report_trace(name, f'one batch of 32, forward + loss, {precision}', events, busy, window,
                  EVAL_GROUPS)
     return window, events
@@ -814,11 +863,12 @@ def train_path_phase():
 
 def train_trace_phase(model, precision='float32', name='train trace'):
     """Where one flagship train step at batch 32 spends its device time:
-    torch.profiler over the port's train step, and over its forward + loss
-    alone (train mode, no autograd graph: the same kernels), so that the
-    backward's share is the difference."""
-    from margipose_tpu_torch.models.margipose import margipose_masked_loss
-    from margipose_tpu_torch.parallel.precision import compute_dtype_scope
+    torch.profiler over the port's train step with its spans on, kernels
+    grouped by name, and the step's launches and device idle time under
+    each phase (``train.forward``, ``train.loss``, ``train.backward``,
+    ``train.update`` and the step's own). Tracing is on for all of
+    ``profiled``'s calls: five spans cost the unprofiled window a few us."""
+    from margipose_tpu_torch import tracing
     from margipose_tpu_torch.train.schedules import make_optimiser
     from margipose_tpu_torch.train.steps import TrainState, make_train_step
 
@@ -828,28 +878,21 @@ def train_trace_phase(model, precision='float32', name='train trace'):
     batch = {k: v.cuda() for k, v in flagship_batch(32, seed=5).items()}
     step(state, batch)  # cuDNN's algorithm search for the train shapes
 
-    def forward():
-        with torch.no_grad(), compute_dtype_scope(precision, 'cuda'):
-            margipose_masked_loss(model.train()(batch['input'])[1], batch['target'],
-                                  batch['joint_mask'], batch['valid_depth'])
-
     groups = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
               ('dsnt_jsd_fwd', ('dsnt_jsd_fwd',)), ('dsnt_jsd_bwd', ('dsnt_jsd_bwd',)),
               ('softmax', ('softmax',)), ('optimiser', ('multi_tensor', 'foreach', 'sgd')),
               ('of which FFT', FFT_WORDS), ('copies and casts', ('copy',))]
-    fwd_events, fwd_busy, fwd_window = profiled(forward)
-    events, busy, window = profiled(lambda: step(state, batch))
-    report_trace(name, f'forward + loss alone, batch 32, {precision}', fwd_events, fwd_busy,
-                 fwd_window, groups[:2] + groups[6:])
+    tracing.enable()
+    try:
+        events, busy, window, by_span = profiled(lambda: step(state, batch))
+    finally:
+        tracing.disable()
+        tracing.take()
     report_trace(name, f'one train step of 32, {precision}', events, busy, window, groups)
-    if events and fwd_events:
-        bwd_conv = kernel_ms(events, CONV_WORDS) - kernel_ms(fwd_events, CONV_WORDS)
-        bwd_bn = kernel_ms(events, groups[1][1]) - kernel_ms(fwd_events, groups[1][1])
-        rest = busy - sum(kernel_ms(events, words) for _, words in groups[:6])
-        phase(name, f'backward + optimiser {busy - fwd_busy:.3f} ms of kernels: '
-                    f'convolutions {bwd_conv:.3f} ms (dgrad, wgrad), batch norm '
-                    f'{bwd_bn:.3f} ms; kernels in no group above {rest:.3f} ms '
-                    f'(elementwise, ReLU, copies)')
+    if events:
+        phase(name, 'under each span (launches, device idle ms; the profiler slows the host): '
+                    + '; '.join(f'{span} {n} launches, idle {ms:.3f} ms'
+                                for span, (n, ms) in by_span.items()))
 
 
 def train_step_state(model, device, batch, frozen=None):
@@ -2405,7 +2448,7 @@ def tp_worker(work, d, m, backend):
             step(state, big)  # cuDNN's algorithm search for these shapes
             collectives, undo = counting_collectives()
             try:
-                events, busy, window = profiled(lambda: step(state, big))
+                events, busy, window, _ = profiled(lambda: step(state, big))
             finally:
                 undo()
             name = f'tp {d}x{m} trace' + ('' if rank == 0 else f', process {rank}')

@@ -42,6 +42,7 @@ import warnings
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from margipose_tpu_torch import tracing
 from margipose_tpu_torch.bin.eval_3d import make_forward
 from margipose_tpu_torch.models.margipose import margipose_masked_loss
 from margipose_tpu_torch.parallel.mesh import (
@@ -73,33 +74,39 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
     (``parallel.mesh.shard_batch``). ``loss`` (scalar) and ``pred`` ([B, J,
     3]) stay on the device: nothing is read back. ``mesh``: the
     ``parallel.mesh.Mesh`` the model was placed on (None: every process on
-    the data axis)."""
+    the data axis). While ``tracing`` is on, the step and its forward, loss,
+    backward and update are recorded as spans."""
     group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, batch):
-        distributed = group_active()
-        model = state.model.train()
-        if distributed and (mesh is None or mesh.shape['data'] > 1):
-            if state.replica is None:
-                # BN buffers are computed from all-reduced statistics, so
-                # they agree on every process without a broadcast (newer
-                # torch renames the option and warns)
-                with warnings.catch_warnings():
-                    warnings.simplefilter('ignore', FutureWarning)
-                    state.replica = DistributedDataParallel(model, process_group=group,
-                                                            broadcast_buffers=False)
-            model = state.replica
-        with compute_dtype_scope(compute_dtype, batch['input'].device):
-            xyz, out = model(batch['input'])
-            loss = margipose_masked_loss(out, batch['target'][..., :3], batch['joint_mask'],
-                                         batch['valid_depth'], pixelwise_loss, distributed,
-                                         group)
-        state.optimiser.zero_grad()
-        loss.backward()
-        if mesh is not None:
-            average_replicated_gradients(state.model, mesh)
-        state.optimiser.step()
-        state.step += 1
+        with tracing.span('train.step', state.step):
+            distributed = group_active()
+            model = state.model.train()
+            if distributed and (mesh is None or mesh.shape['data'] > 1):
+                if state.replica is None:
+                    # BN buffers are computed from all-reduced statistics, so
+                    # they agree on every process without a broadcast (newer
+                    # torch renames the option and warns)
+                    with warnings.catch_warnings():
+                        warnings.simplefilter('ignore', FutureWarning)
+                        state.replica = DistributedDataParallel(model, process_group=group,
+                                                                broadcast_buffers=False)
+                model = state.replica
+            with compute_dtype_scope(compute_dtype, batch['input'].device):
+                with tracing.span('train.forward'):
+                    xyz, out = model(batch['input'])
+                with tracing.span('train.loss'):
+                    loss = margipose_masked_loss(out, batch['target'][..., :3],
+                                                 batch['joint_mask'], batch['valid_depth'],
+                                                 pixelwise_loss, distributed, group)
+            state.optimiser.zero_grad()
+            with tracing.span('train.backward'):
+                loss.backward()
+                if mesh is not None:
+                    average_replicated_gradients(state.model, mesh)
+            with tracing.span('train.update'):
+                state.optimiser.step()
+            state.step += 1
         return {'loss': loss.detach(), 'pred': xyz.detach()}
 
     return train_step
