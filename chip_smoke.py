@@ -34,9 +34,15 @@ Phases, each printing its own lines; any failure exits non-zero:
                    model-latest checkpoint, which bin.eval_3d then reads;
                    both kernels must have launched once a step (and the
                    forward once a validation batch);
-  8. train trace   torch.profiler over one train step at batch 32, with the
-                   step's launches and device idle time under each of
-                   its spans (margipose_tpu_torch.tracing);
+  8. train trace   torch.profiler over one eager train step at batch 32 (the
+                   CUDA graph's body), with the step's launches and device
+                   idle time under each of its spans
+                   (margipose_tpu_torch.tracing); after phase 11, the train
+                   graph: 6 steps replayed from the step's CUDA graph
+                   against 6 eager ones in float32 and bf16, held to the
+                   train cell's loss and update limits, with the step's
+                   eager / capture / replay counts, and a replayed step's
+                   device time and idle share beside an eager one's;
   9. train parity  one train step at batch 2 on the card against the CPU,
                    and two steps on the card with a planted fault (one
                    example's loss dropped, one batch norm's gradients
@@ -170,10 +176,17 @@ Phases, each printing its own lines; any failure exits non-zero:
                    the same card (TF32 off) for vs_baseline; its JSON line
                    printed, every key present, every number finite,
                    positive and plausible; no kernel launched by inference,
-                   batch 1 or serve, both kernels once a train step.
+                   batch 1 or serve, both kernels from the host once an
+                   eager or capturing train step.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
-counted from 0 around it. Then one JSON line of per-kernel numbers, and last
+counted from 0 around it. A train step on one card replays a CUDA graph, which
+runs both loss-head kernels with no host launch: the in-process train paths
+run under torch.profiler and report the kernels their device trace saw run,
+each checked against one a train step (and the forward once a validation
+batch) and the wrappers' host launches against one an eager or capturing
+step; the soak and the bench, whose runs are too long to trace, check the
+host launches against the step's counts. Then one JSON line of per-kernel numbers, and last
 the result line {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result. The flagship's train paths run 4 steps; the
 later paths run 2-3, and phase 23 overlaps two of its runs, to keep the
@@ -597,6 +610,42 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
+# the loss-head kernels by the names a device trace gives them
+LOSS_HEAD_KERNELS = {'dsnt_jsd_fwd': 'dsnt_jsd_fwd_kernel', 'dsnt_jsd_bwd': 'dsnt_jsd_bwd_kernel'}
+
+
+def on_card(fn):
+    """``fn()`` under torch.profiler (device activity alone), the loss-head
+    wrappers' counters zeroed just before it: (its result, the wrappers' host
+    launches, the loss-head kernels the device trace saw run). A train step
+    replayed from its CUDA graph runs both kernels with no host launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    host = read_counts(counters)
+    ran = dict.fromkeys(LOSS_HEAD_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            for name, word in LOSS_HEAD_KERNELS.items():
+                ran[name] += word in e.name()
+    return out, host, ran
+
+
+def loss_head_expected(counts, steps, val_batches):
+    """A train path's loss-head kernels as (run on the card, launched by the
+    host): on the card each once a train step and the forward once more a
+    validation batch; from the host once an eager or capturing step
+    (``counts``: the train step's ``step_counts``) and once a validation
+    batch."""
+    host = counts['eager_steps'] + counts['captures']
+    return ({'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps},
+            {'dsnt_jsd_fwd': host + val_batches, 'dsnt_jsd_bwd': host})
+
+
 def flagship(device):
     """The flagship from seed 0, BN statistics calibrated and perturbed, the
     columns' last blocks scaled down: the bench's model (bench.seeded_model)."""
@@ -813,21 +862,21 @@ def train_path_phase():
     shutil.rmtree(out_dir, ignore_errors=True)
     steps, val_batches, seed = TRAIN_STEPS, 1, 7
     torch.cuda.reset_peak_memory_stats()
-    counters = reset_counts()
-    result = train_3d.main(['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
-                            f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
-                            'val_examples=32', 'metrics_every=1', f'seed={seed}',
-                            "precision='float32'", "ship='float32'",
-                            f'out_dir={out_dir}', 'experiment_id=flagship'])
-    launches = read_counts(counters)
+    result, host, launches = on_card(lambda: train_3d.main(
+        ['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
+         f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']", 'val_examples=32',
+         'metrics_every=1', f'seed={seed}', "precision='float32'", "ship='float32'",
+         f'out_dir={out_dir}', 'experiment_id=flagship']))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps}
-    phase('train', f'kernel launches {launches}, expected {expected} (one grouped launch each '
-                   f'way a step for 3 planes x 4 stages; {steps} train steps, {val_batches} '
-                   f'validation batch)')
-    if launches != expected or result['step'] != steps:
-        raise AssertionError(f'train path launched {launches} in {result["step"]} steps, '
-                             f'expected {expected} in {steps}')
+    expected, expected_host = loss_head_expected(result['step_counts'], steps, val_batches)
+    phase('train', f'kernels run on the card {launches}, expected {expected} (one grouped '
+                   f'kernel each way a step for 3 planes x 4 stages; {steps} train steps, '
+                   f'{val_batches} validation batch); host launches {host}, expected '
+                   f'{expected_host} ({result["step_counts"]})')
+    if launches != expected or host != expected_host or result['step'] != steps:
+        raise AssertionError(f'train path ran {launches} and launched {host} in '
+                             f'{result["step"]} steps, expected {expected} and {expected_host} '
+                             f'in {steps}')
 
     ckpt_dir = os.path.join(out_dir, 'flagship', 'model-latest')
     saved = checkpoint.load_payload(ckpt_dir)['model']
@@ -849,7 +898,8 @@ def train_path_phase():
                    f'{32 * len(steady) / (sum(steady) / 1e3):.1f} images/s on the device '
                    f'after the first step; {result["train_images_per_sec"]:.1f} images/s by the '
                    f'host clock (window meter); data_load_time {result["data_load_time"]:.4f} s '
-                   f'a step; peak memory {peak_gib:.2f} GiB (max_memory_allocated)')
+                   f'a step; peak memory {peak_gib:.2f} GiB (max_memory_allocated); the run '
+                   f'under the profiler')
 
     rows, stats = eval_3d.main(['--model', ckpt_dir, '--dataset', 'synthetic-64',
                                 '--batch-size', '32', '--precision', 'float32', '--device', 'cuda'])
@@ -863,14 +913,15 @@ def train_path_phase():
 
 def train_trace_phase(model, precision='float32', name='train trace'):
     """Where one flagship train step at batch 32 spends its device time:
-    torch.profiler over the port's train step with its spans on, kernels
-    grouped by name, and the step's launches and device idle time under
-    each phase (``train.forward``, ``train.loss``, ``train.backward``,
-    ``train.update`` and the step's own). Tracing is on for all of
-    ``profiled``'s calls: five spans cost the unprofiled window a few us."""
+    torch.profiler over the port's eager train step (the graph's body) with
+    its spans on, kernels grouped by name, and the step's launches and
+    device idle time under each phase (``train.forward``, ``train.loss``,
+    ``train.backward``, ``train.update`` and the step's own). Tracing is on
+    for all of ``profiled``'s calls: five spans cost the unprofiled window a
+    few us."""
     from margipose_tpu_torch import tracing
     from margipose_tpu_torch.train.schedules import make_optimiser
-    from margipose_tpu_torch.train.steps import TrainState, make_train_step
+    from margipose_tpu_torch.train.steps import TrainState, eager, make_train_step
 
     model = copy.deepcopy(model)
     state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0, max_iters=100))
@@ -878,21 +929,98 @@ def train_trace_phase(model, precision='float32', name='train trace'):
     batch = {k: v.cuda() for k, v in flagship_batch(32, seed=5).items()}
     step(state, batch)  # cuDNN's algorithm search for the train shapes
 
-    groups = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
-              ('dsnt_jsd_fwd', ('dsnt_jsd_fwd',)), ('dsnt_jsd_bwd', ('dsnt_jsd_bwd',)),
-              ('softmax', ('softmax',)), ('optimiser', ('multi_tensor', 'foreach', 'sgd')),
-              ('of which FFT', FFT_WORDS), ('copies and casts', ('copy',))]
     tracing.enable()
     try:
-        events, busy, window, by_span = profiled(lambda: step(state, batch))
+        events, busy, window, by_span = profiled(lambda: eager(step, state, batch))
     finally:
         tracing.disable()
         tracing.take()
-    report_trace(name, f'one train step of 32, {precision}', events, busy, window, groups)
+    report_trace(name, f'one eager train step of 32, {precision}', events, busy, window,
+                 TRAIN_GROUPS)
     if events:
         phase(name, 'under each span (launches, device idle ms; the profiler slows the host): '
                     + '; '.join(f'{span} {n} launches, idle {ms:.3f} ms'
                                 for span, (n, ms) in by_span.items()))
+
+
+TRAIN_GROUPS = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
+                ('dsnt_jsd_fwd', ('dsnt_jsd_fwd',)), ('dsnt_jsd_bwd', ('dsnt_jsd_bwd',)),
+                ('softmax', ('softmax',)), ('optimiser', ('multi_tensor', 'foreach', 'sgd')),
+                ('of which FFT', FFT_WORDS), ('copies and casts', ('copy',))]
+
+
+# graphed against eager flagship steps at batch 32 over 6 steps: each step
+# function makes its own cuDNN timed search, which may pick other float32
+# algorithms, and lr 1 carries their rounding into every weight (float32 read
+# 4.1e-4 and 7.4e-3 on an H100, bf16 0). The limits are those the train cell
+# holds a bf16 run to against its float32 reference.
+GRAPH_LOSS_GAP = 1e-3
+GRAPH_UPDATE_GAP = 0.07
+
+
+def median_leaf_gap(got, want):
+    """(median, largest) over the parameters of the gap between two norms of
+    their change, ``got`` against ``want`` (dicts by name), each relative to
+    the larger of ``want``'s and the median norm; parameters that changed by
+    under a thousandth of the median are left out."""
+    floor = 1e-3 * float(np.median(list(want.values())))
+    kept = [k for k, v in want.items() if v >= floor]
+    median = float(np.median([want[k] for k in kept]))
+    gaps = np.array([abs(got[k] - want[k]) / max(want[k], median) for k in kept])
+    return float(np.median(gaps)), float(gaps.max())
+
+
+def train_graph_phase(model, precision='float32', name='train graph'):
+    """The flagship's train step at batch 32 replayed from its CUDA graph
+    against the same steps run eagerly, from one set of weights over 6
+    seeded batches: the losses' largest relative gap and the median leaf's
+    gap of the parameters' change, within GRAPH_LOSS_GAP and
+    GRAPH_UPDATE_GAP; the step function's eager / capture / replay counts;
+    one replayed step's device time and idle share beside an eager step's,
+    and the kernels whose launch counts differ between the two."""
+    from margipose_tpu_torch.train.schedules import make_optimiser
+    from margipose_tpu_torch.train.steps import TrainState, eager, make_train_step, step_counts
+
+    states, steps, losses = [], [], []
+    for _ in range(2):
+        m = copy.deepcopy(model)
+        states.append(TrainState(m, make_optimiser('1cycle', m.parameters(), 1.0, max_iters=100)))
+        steps.append(make_train_step('jsd', precision))
+        losses.append([])
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    for seed in range(6):
+        batch = {k: v.cuda() for k, v in flagship_batch(32, seed=40 + seed).items()}
+        losses[0].append(steps[0](states[0], batch)['loss'])
+        losses[1].append(eager(steps[1], states[1], batch)['loss'])
+    got, want = (torch.stack(x).double().cpu().numpy() for x in losses)
+    loss_gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    change = [{k: float((p.detach() - start[k]).norm()) for k, p in s.model.named_parameters()}
+              for s in states]
+    update_gap, worst = median_leaf_gap(*change)
+    counts = step_counts(steps[0])
+    phase(name, f'{precision}: graphed vs eager over 6 steps: loss gap {loss_gap:.3e} (limit '
+                f'{GRAPH_LOSS_GAP}), update gap median {update_gap:.3e} (limit '
+                f'{GRAPH_UPDATE_GAP}), worst leaf {worst:.3e}; counts {counts}')
+    if not (loss_gap <= GRAPH_LOSS_GAP and update_gap <= GRAPH_UPDATE_GAP
+            and counts == {'eager_steps': 1, 'captures': 1, 'replays': 4}):
+        raise AssertionError(f'{name}: the graphed step left the eager one or did not replay')
+
+    batch = {k: v.cuda() for k, v in flagship_batch(32, seed=5).items()}
+    replayed = profiled(lambda: steps[0](states[0], batch))
+    eagerly = profiled(lambda: eager(steps[1], states[1], batch))
+    report_trace(name, f'one replayed train step of 32, {precision}', *replayed[:3],
+                 TRAIN_GROUPS)
+    phase(name, f'eager step: window {eagerly[2]:.3f} ms, replayed {replayed[2]:.3f} ms; counts '
+                f'{step_counts(steps[0])}')
+    if replayed[0] and eagerly[0]:
+        by_name = [{e.key: e.count for e in r[0]} for r in (replayed, eagerly)]
+        differ = sorted((by_name[0].get(k, 0) - by_name[1].get(k, 0), k)
+                        for k in set(by_name[0]) | set(by_name[1])
+                        if by_name[0].get(k, 0) != by_name[1].get(k, 0))
+        phase(name, f'launches replayed {sum(by_name[0].values())}, eager '
+                    f'{sum(by_name[1].values())}; differing kernels (replayed - eager): '
+                    + '; '.join(f'{d:+d} {k[:90]}' for d, k in (
+                        differ if len(differ) <= 12 else differ[:6] + differ[-6:])))
 
 
 def train_step_state(model, device, batch, frozen=None):
@@ -1094,19 +1222,19 @@ def bf16_train_phase():
     shutil.rmtree(out_dir, ignore_errors=True)
     steps, val_batches = TRAIN_STEPS, 1
     torch.cuda.reset_peak_memory_stats()
-    counters = reset_counts()
-    result = train_3d.main(['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
-                            f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
-                            'val_examples=32', 'metrics_every=1', 'seed=7',
-                            "precision='bfloat16'", "ship='uint8'",
-                            f'out_dir={out_dir}', 'experiment_id=flagship'])
-    launches = read_counts(counters)
+    result, host, launches = on_card(lambda: train_3d.main(
+        ['with', 'margipose_model', 'synthetic', 'epochs=1', 'batch_size=32',
+         f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']", 'val_examples=32',
+         'metrics_every=1', 'seed=7', "precision='bfloat16'", "ship='uint8'",
+         f'out_dir={out_dir}', 'experiment_id=flagship']))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {'dsnt_jsd_fwd': steps + val_batches, 'dsnt_jsd_bwd': steps}
-    phase('bf16 train', f'kernel launches {launches}, expected {expected}')
-    if launches != expected or result['step'] != steps:
-        raise AssertionError(f'bf16 train path launched {launches} in {result["step"]} steps, '
-                             f'expected {expected} in {steps}')
+    expected, expected_host = loss_head_expected(result['step_counts'], steps, val_batches)
+    phase('bf16 train', f'kernels run on the card {launches}, expected {expected}; host '
+                        f'launches {host}, expected {expected_host} ({result["step_counts"]})')
+    if launches != expected or host != expected_host or result['step'] != steps:
+        raise AssertionError(f'bf16 train path ran {launches} and launched {host} in '
+                             f'{result["step"]} steps, expected {expected} and '
+                             f'{expected_host} in {steps}')
     payload = checkpoint.load_payload(os.path.join(out_dir, 'flagship', 'model-latest'))
     dtypes = {v.dtype for k, v in payload['model'].items() if not k.endswith('num_batches_tracked')}
     dtypes |= {buf.dtype for st in payload['optimiser']['optimiser']['state'].values()
@@ -1389,25 +1517,26 @@ def write_backbone(path, variant, seed):
 
 def train_bin_phase(name, words, steps, experiment_id):
     """bin.train_3d on ``words`` at batch 32 for ``steps`` steps and one
-    validation batch: both kernels once a step (the forward also once for the
-    validation batch). Returns (launches, result, checkpoint directory)."""
+    validation batch: both kernels run on the card once a step (the forward
+    also once for the validation batch), launched by the host once an eager
+    or capturing step. Returns (the kernels run, result, checkpoint
+    directory)."""
     from margipose_tpu_torch.bin import train_3d
 
     out_dir = os.path.join(WORK, experiment_id)
     shutil.rmtree(out_dir, ignore_errors=True)
-    counters = reset_counts()
-    result = train_3d.main(['with', *words, 'epochs=1', 'batch_size=32',
-                            f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']",
-                            'val_examples=32', 'metrics_every=1', 'seed=9', f'out_dir={out_dir}',
-                            f'experiment_id={experiment_id}'])
-    launches = read_counts(counters)
-    expected = {'dsnt_jsd_fwd': steps + 1, 'dsnt_jsd_bwd': steps}
-    phase(name, f'kernel launches {launches}, expected {expected}')
+    result, host, launches = on_card(lambda: train_3d.main(
+        ['with', *words, 'epochs=1', 'batch_size=32', f'train_examples={32 * steps}',
+         "val_datasets=['synthetic-32@1']", 'val_examples=32', 'metrics_every=1', 'seed=9',
+         f'out_dir={out_dir}', f'experiment_id={experiment_id}']))
+    expected, expected_host = loss_head_expected(result['step_counts'], steps, 1)
+    phase(name, f'kernels run on the card {launches}, expected {expected}; host launches '
+                f'{host}, expected {expected_host} ({result["step_counts"]})')
     with open(os.path.join(out_dir, experiment_id, 'metrics.jsonl')) as f:
         val_loss = json.loads(f.readline())['val_loss']
-    if launches != expected or result['step'] != steps:
-        raise AssertionError(f'{name} launched {launches} in {result["step"]} steps, '
-                             f'expected {expected} in {steps}')
+    if launches != expected or host != expected_host or result['step'] != steps:
+        raise AssertionError(f'{name} ran {launches} and launched {host} in {result["step"]} '
+                             f'steps, expected {expected} and {expected_host} in {steps}')
     if not (math.isfinite(result['train_loss']) and math.isfinite(val_loss)):
         raise AssertionError(f'{name}: train loss {result["train_loss"]}, val loss {val_loss}')
     ms = [s * 1e3 for s in result['step_seconds']]
@@ -1674,23 +1803,25 @@ def mpi3d_train_phase():
             yield batch, device_batch
 
     train_3d.device_prefetch = recording
-    counters = reset_counts()
     try:
-        result = train_3d.main(['with', 'margipose_model', 'mpi3d', 'epochs=1', 'batch_size=32',
-                                f'train_examples={32 * MPI3D_TRAIN_STEPS}', 'use_aug=True',
-                                'metrics_every=1', 'seed=11', "precision='float32'",
-                                "ship='float32'", f'out_dir={out_dir}', 'experiment_id=mpi3d'])
+        result, host, launches = on_card(lambda: train_3d.main(
+            ['with', 'margipose_model', 'mpi3d', 'epochs=1', 'batch_size=32',
+             f'train_examples={32 * MPI3D_TRAIN_STEPS}', 'use_aug=True', 'metrics_every=1',
+             'seed=11', "precision='float32'", "ship='float32'", f'out_dir={out_dir}',
+             'experiment_id=mpi3d']))
     finally:
         train_3d.device_prefetch = real_prefetch
-    launches = read_counts(counters)
     steps = MPI3D_TRAIN_STEPS
-    expected = {'dsnt_jsd_fwd': steps, 'dsnt_jsd_bwd': steps}
-    phase('mpi3d train', f'kernel launches {launches}, expected {expected}; valid_depth values '
-                         f'per batch {seen}')
+    expected, expected_host = loss_head_expected(result['step_counts'], steps, 0)
+    phase('mpi3d train', f'kernels run on the card {launches}, expected {expected}; host '
+                         f'launches {host}, expected {expected_host} ({result["step_counts"]}); '
+                         f'valid_depth values per batch {seen}')
     ckpt = os.path.join(out_dir, 'mpi3d', 'model-latest')
-    if launches != expected or result['step'] != steps or seen != [[0, 1]] * steps:
-        raise AssertionError(f'mpi3d train launched {launches} in {result["step"]} steps with '
-                             f'valid_depth {seen}, expected {expected} in {steps}, each {{0, 1}}')
+    if (launches != expected or host != expected_host or result['step'] != steps
+            or seen != [[0, 1]] * steps):
+        raise AssertionError(f'mpi3d train ran {launches} and launched {host} in '
+                             f'{result["step"]} steps with valid_depth {seen}, expected '
+                             f'{expected} and {expected_host} in {steps}, each {{0, 1}}')
     if not (math.isfinite(result['train_loss']) and os.path.isdir(ckpt)):
         raise AssertionError(f'mpi3d train: loss {result["train_loss"]}, model-latest written '
                              f'{os.path.isdir(ckpt)}')
@@ -2058,31 +2189,31 @@ def hyperparams_phase():
     shutil.rmtree(out_dir, ignore_errors=True)
     lr_min, lr_max, iters = 1e-4, 1.0, HYPERPARAM_ITERS
     seen, undo = recording_results(hyperparam_search, 'run_lr_range_test')
-    counters = reset_counts()
     t0 = time.perf_counter()
     try:
-        dispatch('hyperparams', 'with', 'margipose_model', 'synthetic', 'batch_size=32',
-                 f'max_iters={iters}', f'lr_min={lr_min}', f'lr_max={lr_max}',
-                 f'out_dir={out_dir}')
+        _, host, launches = on_card(lambda: dispatch(
+            'hyperparams', 'with', 'margipose_model', 'synthetic', 'batch_size=32',
+            f'max_iters={iters}', f'lr_min={lr_min}', f'lr_max={lr_max}', f'out_dir={out_dir}'))
     finally:
         undo()
     wall = time.perf_counter() - t0
-    launches = read_counts(counters)
     (out,) = seen
     ran = len(out['step_seconds'])
-    expected = {'dsnt_jsd_fwd': ran, 'dsnt_jsd_bwd': ran}
+    expected, expected_host = loss_head_expected(out['step_counts'], ran, 0)
     lrs = np.geomspace(lr_min, lr_max, iters)
     table = np.loadtxt(os.path.join(out['exp_dir'], 'lr_curve.csv'), delimiter=',', ndmin=2)
     ms = [s * 1e3 for s in out['step_seconds']]
-    phase('cli', f'hyperparams, flagship float32 at batch 32: kernel launches {launches}, '
-                 f'expected {expected} ({ran} iterations of {iters}); {len(out["lrs"])} points '
-                 f'recorded, lr {out["lrs"][0]:.3e} .. {out["lrs"][-1]:.3e}, smoothed loss '
+    phase('cli', f'hyperparams, flagship float32 at batch 32: kernels run on the card '
+                 f'{launches}, expected {expected} ({ran} iterations of {iters}); host launches '
+                 f'{host}, expected {expected_host} ({out["step_counts"]}); '
+                 f'{len(out["lrs"])} points recorded, lr {out["lrs"][0]:.3e} .. {out["lrs"][-1]:.3e}, smoothed loss '
                  f'{out["losses"][0]:.6f} .. {out["losses"][-1]:.6f}; lr_curve.csv '
                  f'{table.shape[0]} rows')
     phase('cli', f'hyperparams ms per iteration (CUDA events): first {ms[0]:.3f} (cuDNN\'s '
                  f'algorithm search), then {", ".join(f"{m:.3f}" for m in ms[1:])}; '
-                 f'{wall:.1f} s wall for the subcommand (model, loader, iterations, CSV)')
-    if not (launches == expected and ran == iters and out['lrs']
+                 f'{wall:.1f} s wall for the subcommand (model, loader, iterations, CSV; under '
+                 f'the profiler)')
+    if not (launches == expected and host == expected_host and ran == iters and out['lrs']
             and np.array_equal(out['lrs'], lrs[:len(out['lrs'])])
             and all(math.isfinite(v) for v in out['losses'])
             and np.array_equal(table, np.stack([out['lrs'], out['losses']], 1))):
@@ -2556,12 +2687,14 @@ def soak_report(label, exp_dir, name='soak'):
     with open(os.path.join(exp_dir, 'soak_run.json')) as f:
         record = json.load(f)
     steps = record['step'] - record['start_step']
-    launches = record['launches']
+    launches, counts = record['launches'], record['step_counts']
+    host = counts['eager_steps'] + counts['captures']
     ms = np.array(record['step_seconds']) * 1e3
     copy_ms = np.array(record['save_copy_seconds']) * 1e3
     write_ms = np.array(record['save_write_seconds']) * 1e3
-    phase(name, f'{label}: kernel launches {launches} in the {steps} steps of the training '
-                f'process that ended (counted from 0 in it), expected one of each a step; '
+    phase(name, f'{label}: host launches {launches} in the {steps} steps of the training '
+                f'process that ended (counted from 0 in it: {counts}), expected one of each an '
+                f'eager or capturing step; '
                 f'device ms a step: first {ms[0]:.3f}, then min {ms[1:].min():.3f}, p10 '
                 f'{np.percentile(ms[1:], 10):.3f}, median {np.median(ms[1:]):.3f}, p90 '
                 f'{np.percentile(ms[1:], 90):.3f}, p99 {np.percentile(ms[1:], 99):.3f}, max '
@@ -2569,7 +2702,8 @@ def soak_report(label, exp_dir, name='soak'):
                 f'{np.median(copy_ms):.1f} ms (the loop waits for it), write and swap median '
                 f'{np.median(write_ms):.1f} ms (in the background); process wall '
                 f'{record["wall_seconds"]:.1f} s')
-    if not checks.ok or steps < 2 or launches != {'dsnt_jsd_fwd': steps, 'dsnt_jsd_bwd': steps}:
+    if (not checks.ok or steps < 2 or sum(counts.values()) != steps
+            or launches != {'dsnt_jsd_fwd': host, 'dsnt_jsd_bwd': host}):
         raise AssertionError(f'the {label} soak: verifier ok {checks.ok}, launches {launches} '
                              f'in {steps} steps')
     return launches
@@ -2658,13 +2792,17 @@ def bench_phase():
             wrong.append(f'{path} launched {by_path[path]}')
     trains = [records[name] for name in segments['bench_train']]
     for record in trains:
-        if record['launches'] != dict.fromkeys(launches, record['calls']):
-            wrong.append(f'a train segment launched {record["launches"]} in '
-                         f'{record["calls"]} steps')
+        counts = record['step_counts']
+        host = counts['eager_steps'] + counts['captures']
+        if (record['launches'] != dict.fromkeys(launches, host)
+                or sum(counts.values()) != record['calls']):
+            wrong.append(f'a train segment launched {record["launches"]} from the host in '
+                         f'{record["calls"]} steps ({counts})')
     if launches != by_path['bench_train']:
         wrong.append(f'the bench launched {launches} in all')
-    phase('bench', f'kernel launches {launches}: train {sum(r["calls"] for r in trains)} steps, '
-                   f'inference, batch 1 and serve none; phase 24 took '
+    phase('bench', f'host launches {launches}: train {sum(r["calls"] for r in trains)} steps '
+                   f'(one an eager or capturing step), inference, batch 1 and serve none; '
+                   f'phase 24 took '
                    f'{time.perf_counter() - t0:.1f} s')
     if wrong:
         raise AssertionError(f'the bench\'s line or launches are wrong: {wrong}')
@@ -2875,6 +3013,8 @@ def main():
     train_parity_phase(model)
     by_path['train_bf16'] = bf16_train_phase()
     train_trace_phase(model, 'bfloat16', 'bf16 train trace')
+    train_graph_phase(model)
+    train_graph_phase(model, 'bfloat16', 'bf16 train graph')
     by_path['infer'] = infer_phase(model)
     by_path['serve'] = serve_phase(ckpt)
     by_path.update(stems_phase())

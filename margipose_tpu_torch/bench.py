@@ -226,7 +226,9 @@ def _launches():
 @contextlib.contextmanager
 def segment(records, name, device):
     """Records a segment's calls (the caller counts them into the yielded
-    dict), its loss-head kernel launches and its peak device memory."""
+    dict), its loss-head kernels' host launches (a train step replayed from
+    its CUDA graph launches none: the train segments add ``step_counts``)
+    and its peak device memory."""
     before = _launches()
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
@@ -238,7 +240,9 @@ def segment(records, name, device):
     record['peak_memory_gib'] = (torch.cuda.max_memory_allocated(device) / 2**30
                                  if device.type == 'cuda' else None)
     peak = record['peak_memory_gib']
-    log(f"segment {name}: {record['calls']} calls, loss-head launches {record['launches']}, "
+    counts = ''.join(f', {k} {v}' for k, v in record.get('step_counts', {}).items())
+    log(f"segment {name}: {record['calls']} calls, loss-head host launches "
+        f"{record['launches']}{counts}, "
         f"peak memory {'not measured (CPU)' if peak is None else f'{peak:.3f} GiB'}")
 
 
@@ -329,14 +333,15 @@ def train(model, desc, size, batch, precision, iters, device, records):
     """Images/s of train steps of ``batch`` at ``precision``, on a copy of
     ``model`` (the inference segments' model stays as it is)."""
     from margipose_tpu_torch.train.schedules import make_optimiser
-    from margipose_tpu_torch.train.steps import TrainState, make_train_step
+    from margipose_tpu_torch.train.steps import TrainState, make_train_step, step_counts
 
     with segment(records, f'train_{precision}', device) as record:
         copy_ = copy.deepcopy(model)
         state = TrainState(copy_, make_optimiser('1cycle', copy_.parameters(), 1.0,
                                                  max_iters=1000))
-        step = _counted(make_train_step(desc['settings'].get('pixelwise_loss', 'jsd'),
-                                        compute_dtype=precision), record)
+        train_step = make_train_step(desc['settings'].get('pixelwise_loss', 'jsd'),
+                                     compute_dtype=precision)
+        step = _counted(train_step, record)
         data = train_batch(batch, size, _n_joints(desc), device)
         last = {}
 
@@ -346,6 +351,7 @@ def train(model, desc, size, batch, precision, iters, device, records):
         first = call_seconds(run_step, device)
         t = seconds_per_call(run_step, iters, device, warmup=1)
         loss = float(last['loss'])
+        record['step_counts'] = step_counts(train_step)
         del state, copy_, last
     if not math.isfinite(loss):
         raise RuntimeError(f'train[{precision}]: loss {loss} after {record["calls"]} steps')

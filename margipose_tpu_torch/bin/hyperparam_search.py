@@ -40,7 +40,7 @@ from margipose_tpu_torch.models import (
 )
 from margipose_tpu_torch.train.helpers import create_train_dataloader
 from margipose_tpu_torch.train.schedules import ScheduledOptimiser
-from margipose_tpu_torch.train.steps import TrainState, make_train_step
+from margipose_tpu_torch.train.steps import TrainState, make_train_step, step_counts
 from margipose_tpu_torch.utils import seed_all
 
 ex = Experiment()
@@ -125,8 +125,9 @@ def run_lr_range_test(cfg: dict, device='cuda', model=None) -> dict:
     """The sweep: ``{lrs, losses}`` of the recorded points (the lr each
     iteration trained at, its smoothed loss) and ``step_seconds``, each
     iteration's time on the device (CUDA events on the card, the host clock
-    on the CPU). ``model`` replaces the seeded initial model (a test starts
-    from carried weights)."""
+    on the CPU), and ``step_counts``, the train step's eager, captured and
+    replayed steps (``train.steps.step_counts``). ``model`` replaces the
+    seeded initial model (a test starts from carried weights)."""
     device = resolve_device(device)
     seed_all(cfg['seed'])
     set_float32_parity_mode()
@@ -194,7 +195,8 @@ def run_lr_range_test(cfg: dict, device='cuda', model=None) -> dict:
         clock.wait(marks[-1][1])
 
     out = {'lrs': used_lrs, 'losses': losses,
-           'step_seconds': [clock.seconds(s, e) for s, e in marks]}
+           'step_seconds': [clock.seconds(s, e) for s, e in marks],
+           'step_counts': step_counts(train_step)}
     if out['step_seconds']:
         what = 'device (CUDA events)' if device.type == 'cuda' else 'host clock'
         print(f'{len(marks)} iterations, ms each on the {what}: '

@@ -71,7 +71,12 @@ from margipose_tpu_torch.train.helpers import (
 from margipose_tpu_torch.train.meters import make_train_reporter, timer
 from margipose_tpu_torch.train.pretrained import load_pretrained_stem
 from margipose_tpu_torch.train.schedules import make_optimiser, schedule_values
-from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
+from margipose_tpu_torch.train.steps import (
+    TrainState,
+    make_eval_step,
+    make_train_step,
+    step_counts,
+)
 from margipose_tpu_torch.utils import init_algorithms, seed_all
 
 ex = Experiment()
@@ -342,6 +347,7 @@ def run_training(cfg: dict, device='cuda') -> dict:
 
     result['experiment_id'] = experiment_id
     result['step'] = state.step
+    result['step_counts'] = step_counts(train_step)
     return result
 
 

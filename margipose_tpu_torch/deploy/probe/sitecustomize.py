@@ -18,6 +18,7 @@ import os
 
 
 def _install(record_dir, watch):
+    import functools
     import hashlib
     import json
     import sys
@@ -58,6 +59,7 @@ def _install(record_dir, watch):
     def probed_make_train_step(*args, **kwargs):
         train_step = make_train_step(*args, **kwargs)
 
+        @functools.wraps(train_step)
         def probed(state, batch):
             metrics = train_step(state, batch)
             digest = hashlib.sha256()

@@ -44,12 +44,15 @@ def resolve_dtype(name):
             f"unknown precision {name!r}; expected one of {sorted(_DTYPES)}") from None
 
 
-def compute_dtype_scope(dtype, device):
+def compute_dtype_scope(dtype, device, cache_enabled=None):
     """The context a forward runs in: ``torch.autocast`` to bfloat16 on
-    ``device``'s type for bfloat16, a null context for float32 or None."""
+    ``device``'s type for bfloat16, a null context for float32 or None.
+    ``cache_enabled`` goes to ``torch.autocast`` (None: its default, the
+    cast cache on); a CUDA graph is captured with it False."""
     dtype = resolve_dtype(dtype)
     if dtype in (None, torch.float32):
         return contextlib.nullcontext()
     if dtype != torch.bfloat16:
         raise ValueError(f"unsupported compute dtype {dtype}; expected float32 or bfloat16")
-    return torch.autocast(torch.device(device).type, dtype=torch.bfloat16)
+    return torch.autocast(torch.device(device).type, dtype=torch.bfloat16,
+                          cache_enabled=cache_enabled)

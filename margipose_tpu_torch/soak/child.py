@@ -123,7 +123,7 @@ def run(words, device, eval_dataset, eval_batch_size, pause_in_save=None, marker
     return {'device': str(dev),
             'device_name': torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu',
             'start_step': probe.start_step, 'step': result['step'],
-            'launches': launches, 'wall_seconds': wall,
+            'launches': launches, 'step_counts': result['step_counts'], 'wall_seconds': wall,
             'step_seconds': probe.step_seconds, 'save_copy_seconds': probe.copy_seconds,
             'save_write_seconds': probe.write_seconds,
             'eval': {'argv': argv, 'rows': {m: [float(v) for v in rows[m]]

@@ -214,7 +214,10 @@ def check_restore(exp_dir, check, device=None):
 
 
 def check_launches(exp_dir, check):
-    """On the card, both kernels once a step of the run that ended."""
+    """On the card, both kernels launched by the host once an eager or a
+    capturing step of the run that ended (a step replayed from the train
+    step's CUDA graph runs them without a host launch), and the three kinds
+    of step adding up to the run's steps."""
     with open(path.join(exp_dir, 'soak_run.json')) as f:
         record = json.load(f)
     steps = record['step'] - record['start_step']
@@ -222,10 +225,12 @@ def check_launches(exp_dir, check):
         check.say(f"[SKIP] kernel launches: the run was on {record['device']}, where the "
                   f'wrappers run the plain versions ({steps} steps)')
         return
-    want = {'dsnt_jsd_fwd': steps, 'dsnt_jsd_bwd': steps}
-    check('both kernels launched once a step in the run that ended',
-          record['launches'] == want and steps > 0,
-          f"{record['launches']} in {steps} steps on {record['device_name']}")
+    counts = record['step_counts']
+    host = counts['eager_steps'] + counts['captures']
+    want = {'dsnt_jsd_fwd': host, 'dsnt_jsd_bwd': host}
+    check('both kernels launched by the host once an eager or capturing step of the run that '
+          'ended', record['launches'] == want and sum(counts.values()) == steps > 0,
+          f"{record['launches']} in {steps} steps ({counts}) on {record['device_name']}")
 
 
 def trajectory(records, key):

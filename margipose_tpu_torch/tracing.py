@@ -16,9 +16,13 @@ masked mean), ``train.backward`` (``loss.backward()``, and on a hybrid mesh
 the replicated gradients' average) and ``train.update`` (the schedule and
 the optimiser's step). Zeroing the gradients, the mode switch, the
 DistributedDataParallel wrapper and the step counter are ``train.step``'s
-own time. A span's ``step`` is the train state's ``step`` as the step
-began: the spans of one step share it, and ``parent`` is the index in the
-same ``take()`` of the span that encloses it.
+own time. A step replayed from a CUDA graph records ``train.replay`` (the
+schedule's fills, the batch's copies into the graph and the replay) under
+``train.step`` in place of the four phases; the step that captures the
+graph records ``train.capture``, holding the four phases as they were
+recorded, then ``train.replay``. A span's ``step`` is the train state's
+``step`` as the step began: the spans of one step share it, and ``parent``
+is the index in the same ``take()`` of the span that encloses it.
 
 The times are the host's (``time.perf_counter_ns``): a span ends when the
 host has queued its work, not when the device has run it, so time the
@@ -43,6 +47,9 @@ import time
 import torch
 
 SPANS = ('train.step', 'train.forward', 'train.loss', 'train.backward', 'train.update')
+# a graphed step's spans; apart from SPANS, whose phases (all but the first)
+# every eager step records and benchmark/spans.py reads as such
+GRAPH_SPANS = ('train.capture', 'train.replay')
 # the CUDA runtime's and driver's host events that launch device work, as
 # torch.profiler names them (prefixes): what a span's launches are counted by
 LAUNCHES = ('cudaLaunchKernel', 'cuLaunchKernel', 'cudaGraphLaunch')
@@ -98,13 +105,13 @@ class _Recording:
 
 
 def span(name, step=None):
-    """A context manager that records the span ``name`` (one of ``SPANS``)
-    while tracing is on; ``step`` (None: the enclosing span's) identifies
-    the train step it belongs to."""
+    """A context manager that records the span ``name`` (one of ``SPANS`` or
+    ``GRAPH_SPANS``) while tracing is on; ``step`` (None: the enclosing
+    span's) identifies the train step it belongs to."""
     if not _on:
         return _NULL
-    if name not in SPANS:
-        raise ValueError(f'{name!r} is not one of the recorded spans {SPANS}')
+    if name not in SPANS + GRAPH_SPANS:
+        raise ValueError(f'{name!r} is not one of the recorded spans {SPANS + GRAPH_SPANS}')
     return _Recording(name, step)
 
 

@@ -5,7 +5,8 @@ src/margipose/hyperparam_scheduler.py:6-42 and
 src/margipose/train_helpers.py:57-78). The schedules are host functions of
 the update counter; ``ScheduledOptimiser`` sets a ``torch.optim`` optimiser's
 lr and momentum from them before each step, reading the counter *before*
-the update, as the JAX package's optax schedules do.
+the update, as the JAX package's optax schedules do, and for SGD also on the
+device, where a CUDA graph of the update reads them.
 """
 
 from __future__ import annotations
@@ -101,25 +102,99 @@ def schedule_values(algorithm: str, lr: float, step: int, max_iters: int = None,
 class ScheduledOptimiser:
     """A ``torch.optim`` optimiser driven per step by a schedule.
 
-    ``step()`` sets every group's lr and momentum to ``schedule(count)`` and
-    then updates the parameters in place; ``count`` is the number of updates
-    made so far. ``state_dict`` holds the counter with the optimiser's
-    buffers, so a restored run continues the schedule where it stopped."""
+    ``step()`` writes ``schedule(count)`` into every group's lr and momentum
+    (``set_schedule``) and then updates the parameters in place
+    (``update``); ``count`` is the number of updates made so far.
+    ``state_dict`` holds the counter with the optimiser's buffers, so a
+    restored run continues the schedule where it stopped.
+
+    For ``torch.optim.SGD`` (``graphable``) ``set_schedule`` also fills two
+    0-d float32 tensors on the parameters' device with lr and momentum, and
+    ``update`` is torch's SGD written in ``torch._foreach_*`` ops that read
+    them: it launches no host-valued kernel, so a CUDA graph of it replays
+    each step's values (``train/steps.make_train_step``). The momentum
+    buffers stay in ``optimiser.state[p]['momentum_buffer']``. Other
+    optimisers take the host values through their own ``step()``.
+    ``generation`` counts the ``load_state_dict`` calls, which replace the
+    buffers a graph would have captured."""
 
     def __init__(self, optimiser: torch.optim.Optimizer, schedule):
         self.optimiser = optimiser
         self.schedule = schedule
         self.count = 0
+        self.generation = 0
+        self._values = None  # (lr, momentum) on the parameters' device
+
+    @property
+    def graphable(self) -> bool:
+        return (type(self.optimiser) is torch.optim.SGD
+                and not any(g['maximize'] for g in self.optimiser.param_groups))
+
+    def graph_key(self):
+        """What a graph of ``update`` depends on beyond the values of tensors:
+        the buffers' generation and whether update ``count`` keeps momentum;
+        None where it cannot be captured (not ``graphable``)."""
+        if not self.graphable:
+            return None
+        return self.generation, self.schedule(self.count)[1] != 0
 
     def zero_grad(self):
         self.optimiser.zero_grad(set_to_none=True)
 
-    def step(self):
+    def set_schedule(self):
+        """lr and momentum of update ``count`` into the groups, and for a
+        ``graphable`` optimiser into its two device tensors (two fills, no
+        read-back)."""
         lr, momentum = self.schedule(self.count)
         for group in self.optimiser.param_groups:
             group['lr'] = lr
             group['momentum'] = momentum
-        self.optimiser.step()
+        if self.graphable:
+            if self._values is None:
+                device = self.optimiser.param_groups[0]['params'][0].device
+                self._values = (torch.zeros((), device=device), torch.zeros((), device=device))
+            self._values[0].fill_(lr)
+            self._values[1].fill_(momentum)
+
+    @torch.no_grad()
+    def update(self):
+        """The update with the values ``set_schedule`` wrote. For SGD,
+        torch's arithmetic (weight decay into the gradient; buf = m buf +
+        (1 - dampening) g, a clone of g on the first update; Nesterov's g + m
+        buf; p -= lr d) with lr and momentum read on the device; whether
+        momentum is kept is the group's host value, as in torch."""
+        if not self.graphable:
+            self.optimiser.step()
+            return
+        lr, momentum = self._values
+        state = self.optimiser.state
+        for group in self.optimiser.param_groups:
+            params = [p for p in group['params'] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group['weight_decay'] != 0:
+                grads = torch._foreach_add(grads, params, alpha=group['weight_decay'])
+            if group['momentum'] != 0:
+                bufs = [state[p].get('momentum_buffer') for p in params]
+                if all(b is not None for b in bufs):
+                    torch._foreach_mul_(bufs, momentum)
+                    torch._foreach_add_(bufs, grads, alpha=1 - group['dampening'])
+                else:
+                    for i, (p, g) in enumerate(zip(params, grads)):
+                        if bufs[i] is None:
+                            bufs[i] = state[p]['momentum_buffer'] = g.detach().clone()
+                        else:
+                            bufs[i].mul_(momentum).add_(g, alpha=1 - group['dampening'])
+                if group['nesterov']:
+                    grads = torch._foreach_add(grads, torch._foreach_mul(bufs, momentum))
+                else:
+                    grads = bufs
+            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
+
+    def step(self):
+        self.set_schedule()
+        self.update()
         self.count += 1
 
     def state_dict(self) -> dict:
@@ -128,6 +203,7 @@ class ScheduledOptimiser:
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state['count'])
         self.optimiser.load_state_dict(state['optimiser'])
+        self.generation += 1
 
 
 def make_optimiser(algorithm: str, params, lr: float, max_iters: int = None,

@@ -4,7 +4,8 @@ lr/momentum trajectories are held to ``margipose_tpu.train.schedules.
 schedule_values``, and 6-step parameter trajectories of every
 ``make_optimiser`` algorithm to the optax transform the JAX package builds,
 on a small tree of numpy parameters and gradients made from a seed. Both
-sides are float32: atol 1e-6.
+sides are float32: atol 1e-6. The SGD update that reads lr and momentum on
+the device is held to ``torch.optim.SGD`` over 20 steps.
 """
 
 import jax
@@ -15,7 +16,11 @@ import pytest
 import torch
 
 from margipose_tpu.train import schedules as jax_schedules
-from margipose_tpu_torch.train.schedules import make_optimiser, schedule_values
+from margipose_tpu_torch.train.schedules import (
+    ScheduledOptimiser,
+    make_optimiser,
+    schedule_values,
+)
 
 # one intra-op thread a process: the suite runs six workers on an eight-core box
 torch.set_num_threads(1)
@@ -85,3 +90,89 @@ def test_state_dict_round_trip_continues_the_trajectory():
     resumed, state = run(4, restore=half)
     assert state['count'] == 4
     assert torch.equal(straight, resumed)
+
+
+# 20 steps: 1cycle's ramp up and down, two milestones of the multistep ones
+LONG = dict(max_iters=20, milestones=[2, 4], gamma=0.5, steps_per_epoch=3)
+
+
+def _torch_sgd_trajectory(opt, ref, params, ref_params, schedule, steps=20, seed=0):
+    """``opt`` (a ScheduledOptimiser) and ``ref`` (torch.optim.SGD, its lr and
+    momentum set from ``schedule`` on the host before each step) stepped on
+    the same seeded gradients."""
+    rng = np.random.RandomState(seed)
+    for count in range(steps):
+        for p, q in zip(params, ref_params):
+            g = rng.randn(*p.shape).astype(np.float32)
+            p.grad, q.grad = torch.from_numpy(g.copy()), torch.from_numpy(g)
+        opt.step()
+        lr, momentum = schedule(count)
+        for group in ref.param_groups:
+            group['lr'], group['momentum'] = lr, momentum
+        ref.step()
+
+
+def _start(seed=0):
+    rng = np.random.RandomState(seed)
+    values = [rng.randn(*s).astype(np.float32) for s in [(4, 3, 3, 3), (4,), (5, 7)]]
+    return ([torch.from_numpy(v.copy()).requires_grad_() for v in values],
+            [torch.from_numpy(v.copy()).requires_grad_() for v in values])
+
+
+@pytest.mark.parametrize('algorithm', ['1cycle', 'sgd_simple', 'sgd', 'nesterov', 'weight_decay'])
+def test_the_device_valued_update_is_torchs_sgd(algorithm):
+    """``ScheduledOptimiser.update`` (lr and momentum read from 0-d tensors)
+    against ``torch.optim.SGD`` over 20 steps, within float32 rounding: rtol
+    1e-6 and 4e-6, two ulps at the trajectories' largest values (about 18),
+    since torch's CPU step fuses p - lr d and ours rounds lr d first. The
+    momentum buffers are torch's, in the optimiser's state; the hyperparameter
+    sweep's SGD adds weight decay."""
+    params, ref_params = _start(['1cycle', 'sgd_simple', 'sgd', 'nesterov',
+                                 'weight_decay'].index(algorithm))
+    if algorithm == 'weight_decay':
+        def schedule(count):
+            return schedule_values('1cycle', 0.5, count, **LONG)
+
+        opt = ScheduledOptimiser(torch.optim.SGD(params, lr=0.05, momentum=0.9,
+                                                 weight_decay=1e-2), schedule)
+        ref = torch.optim.SGD(ref_params, lr=0.05, momentum=0.9, weight_decay=1e-2)
+    else:
+        def schedule(count):
+            return schedule_values(algorithm, 0.5, count, **LONG)
+
+        opt = make_optimiser(algorithm, params, 0.5, **LONG)
+        ref = torch.optim.SGD(ref_params, lr=0.05, momentum=schedule(0)[1],
+                              nesterov=algorithm == 'nesterov')
+    assert opt.graphable
+    _torch_sgd_trajectory(opt, ref, params, ref_params, schedule)
+    assert opt.count == 20
+    for p, q in zip(params, ref_params):
+        np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(), rtol=1e-6, atol=4e-6)
+        got, want = opt.optimiser.state[p].get('momentum_buffer'), ref.state[q].get(
+            'momentum_buffer')
+        assert (got is None) == (want is None) == (algorithm in ('sgd_simple', 'sgd'))
+        if want is not None:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=4e-6)
+    lr, momentum = opt._values
+    assert lr.dtype == momentum.dtype == torch.float32 and lr.dim() == momentum.dim() == 0
+    assert float(lr) == np.float32(schedule(19)[0]) and float(momentum) == np.float32(
+        schedule(19)[1])
+
+
+def test_the_graph_key_follows_load_state_dict_and_momentum():
+    """SGD's key holds how often ``load_state_dict`` replaced the buffers
+    and whether the update keeps momentum; an update leaves it as it was;
+    RMSprop, which takes host values, has none."""
+    params, _ = _start()
+    opt = make_optimiser('1cycle', params, 0.5, **LONG)
+    assert opt.graph_key() == (0, True)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()  # the first update makes the buffers
+    assert opt.graph_key() == (0, True)
+    opt.load_state_dict(opt.state_dict())
+    assert opt.graph_key() == (1, True) and opt.generation == 1
+    simple = make_optimiser('sgd_simple', params, 0.5, **LONG)
+    assert simple.graph_key() == (0, False)
+    rmsprop = make_optimiser('rmsprop', params, 0.5, **LONG)
+    assert not rmsprop.graphable and rmsprop.graph_key() is None

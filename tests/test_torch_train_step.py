@@ -37,6 +37,7 @@ from margipose_tpu.models.margipose import margipose_masked_loss as jax_masked_l
 from margipose_tpu.train.schedules import make_optimiser as jax_make_optimiser
 from margipose_tpu_torch.models import create_model
 from margipose_tpu_torch.models.layers import BatchNorm2d
+from margipose_tpu_torch.train import steps
 from margipose_tpu_torch.train.schedules import make_optimiser
 from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
 from margipose_tpu_torch.weights import state_dict_from_jax
@@ -209,6 +210,54 @@ def test_loss_falls_on_a_fixed_batch():
     assert all(np.isfinite(losses))
     assert losses[-1] < 0.9 * losses[0], losses
     assert state.step == 10
+
+
+def _graph_state(algorithm='1cycle'):
+    model = create_model(small_desc(), generator=torch.Generator().manual_seed(1))
+    return TrainState(model, make_optimiser(algorithm, model.parameters(), 0.05, max_iters=30,
+                                            milestones=[1], gamma=0.5, steps_per_epoch=5))
+
+
+def test_the_graph_key_is_none_wherever_the_step_runs_eagerly(monkeypatch):
+    """``graph_key`` decides where a step may be captured: never on the CPU,
+    under a process group, on a mesh or with RMSprop; a changed shape or
+    dtype, another step function or ``load_state_dict`` makes another key
+    (its first step runs eagerly). Off the card the rest of the rule is
+    read by counting the CPU as a graph device."""
+    state, batch = _graph_state(), _torch_batch(_batch(seed=3))
+    step, other = make_train_step('jsd'), make_train_step('jsd')
+    assert steps.graph_key(step, state, batch) is None  # the CPU
+    monkeypatch.setattr(steps, 'GRAPH_DEVICES', ('cuda', 'cpu'))
+    key = steps.graph_key(step, state, batch)
+    assert key is not None and key == steps.graph_key(step, state, _torch_batch(_batch(seed=4)))
+    assert steps.graph_key(step, state, batch, mesh=object()) is None
+    short = {k: v[:1] for k, v in batch.items()}
+    assert steps.graph_key(step, state, short) not in (None, key)
+    half = dict(batch, input=batch['input'].to(torch.bfloat16))
+    assert steps.graph_key(step, state, half) not in (None, key)
+    assert steps.graph_key(other, state, batch) not in (None, key)
+    assert steps.graph_key(step, _graph_state('rmsprop'), batch) is None
+    state.optimiser.load_state_dict(state.optimiser.state_dict())
+    assert steps.graph_key(step, state, batch) not in (None, key)
+    monkeypatch.setattr(steps, 'group_active', lambda: True)
+    assert steps.graph_key(step, state, batch) is None
+
+
+def test_a_cpu_step_runs_eagerly_and_returns_fresh_tensors():
+    """On the CPU every step is eager (no graph is kept) and each call's
+    loss and pred are tensors of their own, which a later step leaves
+    alone."""
+    state, step = _graph_state(), make_train_step('jsd')
+    outs = [step(state, _torch_batch(_batch(seed=s))) for s in (5, 6, 7)]
+    assert (step.eager_steps, step.captures, step.replays) == (3, 0, 0)
+    assert state.graph is None and state.warmed is None and state.step == 3
+    kept = [(o['loss'].clone(), o['pred'].clone()) for o in outs]
+    step(state, _torch_batch(_batch(seed=8)))
+    for out, (loss, pred) in zip(outs, kept):
+        assert torch.equal(out['loss'], loss) and torch.equal(out['pred'], pred)
+    ptrs = [o[k].data_ptr() for o in outs for k in ('loss', 'pred')]
+    assert len(set(ptrs)) == len(ptrs)
+    assert len({float(o['loss']) for o in outs}) == 3
 
 
 @pytest.mark.slow
