@@ -1,0 +1,8 @@
+"""softargmax3d_fwd_roofline.train: the volumetric soft-argmax's forward kernel's
+share of its bytes bound in the traced train steps, %."""
+
+from benchmark.costs_softargmax3d import roofline
+
+
+def read(obs):
+    return roofline(obs, 'fwd')

@@ -178,6 +178,16 @@ Phases, each printing its own lines; any failure exits non-zero:
                    positive and plausible; no kernel launched by inference,
                    batch 1 or serve, both kernels from the host once an
                    eager or capturing train step.
+ 25. integral      (run after phase 17) the volumetric soft-argmax kernels
+                   (csrc/softargmax3d.cu) against their plain versions in
+                   float32 and bf16 at the integral model's shape (544
+                   volumes of 64^3) and two small ones, timed in a CUDA
+                   graph against their bytes bound; the integral model
+                   (ResNet-50, D = 64) through bin.train_3d in bf16 (its
+                   kernels counted from a device trace, no loss-head
+                   kernel), bin.eval_3d, infer_single and the serve runner;
+                   its bf16 train step replayed from a CUDA graph against
+                   eager steps, and a replayed step by kernel group.
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
 counted from 0 around it. A train step on one card replays a CUDA graph, which
@@ -592,15 +602,25 @@ def sweep_phase(reports):
         report['sweep_graph_us'] = us
 
 
-def launch_counters():
+# the heads' kernels by the names a device trace gives them: the loss head's
+# (MargiPose, Chatterbox) and the integral model's soft-argmax
+LOSS_HEAD_KERNELS = {'dsnt_jsd_fwd': 'dsnt_jsd_fwd_kernel', 'dsnt_jsd_bwd': 'dsnt_jsd_bwd_kernel'}
+SOFTARGMAX3D_KERNELS = {'softargmax3d_fwd': 'softargmax3d_fwd_kernel',
+                        'softargmax3d_bwd': 'softargmax3d_bwd_kernel'}
+
+
+def launch_counters(names=LOSS_HEAD_KERNELS):
     from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
+    from margipose_tpu_torch.ops.softargmax3d import softargmax3d_bwd, softargmax3d_fwd
 
-    return {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd}
+    every = {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd,
+             'softargmax3d_fwd': softargmax3d_fwd, 'softargmax3d_bwd': softargmax3d_bwd}
+    return {name: every[name] for name in names}
 
 
-def reset_counts():
-    """Every kernel's launch count set to 0, just before a path runs."""
-    counters = launch_counters()
+def reset_counts(names=LOSS_HEAD_KERNELS):
+    """The named kernels' launch counts set to 0, just before a path runs."""
+    counters = launch_counters(names)
     for fn in counters.values():
         fn.launches = 0
     return counters
@@ -610,27 +630,23 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
-# the loss-head kernels by the names a device trace gives them
-LOSS_HEAD_KERNELS = {'dsnt_jsd_fwd': 'dsnt_jsd_fwd_kernel', 'dsnt_jsd_bwd': 'dsnt_jsd_bwd_kernel'}
-
-
-def on_card(fn):
-    """``fn()`` under torch.profiler (device activity alone), the loss-head
-    wrappers' counters zeroed just before it: (its result, the wrappers' host
-    launches, the loss-head kernels the device trace saw run). A train step
-    replayed from its CUDA graph runs both kernels with no host launch."""
+def on_card(fn, kernels=LOSS_HEAD_KERNELS):
+    """``fn()`` under torch.profiler (device activity alone), the wrappers'
+    counters of ``kernels`` zeroed just before it: (its result, the wrappers'
+    host launches, the kernels the device trace saw run). A train step
+    replayed from its CUDA graph runs its kernels with no host launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counters = reset_counts()
+    counters = reset_counts(kernels)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     host = read_counts(counters)
-    ran = dict.fromkeys(LOSS_HEAD_KERNELS, 0)
+    ran = dict.fromkeys(kernels, 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
-            for name, word in LOSS_HEAD_KERNELS.items():
+            for name, word in kernels.items():
                 ran[name] += word in e.name()
     return out, host, ran
 
@@ -2986,6 +3002,220 @@ def multi_gpu_main():
     return 0
 
 
+# the volumetric soft-argmax's shapes, (B, J, D, H, W): logits [B, J * D, H, W]
+SOFTARGMAX3D_SHAPES = [
+    (32, 17, 64, 64, 64),  # the integral model's at batch 32: 544 rows of 64^3
+    (2, 17, 8, 16, 16),    # the CPU tests' model (64 px, D = 8)
+    (1, 5, 3, 5, 24),      # odd D and H: the cluster's slices split rows unevenly
+]
+INTEGRAL_STEPS = 4         # the integral train path's steps at batch 32
+INTEGRAL_GROUPS = [('convolutions', CONV_WORDS), ('batch norm', ('batch_norm', 'bn_')),
+                   ('softargmax3d_fwd', ('softargmax3d_fwd',)),
+                   ('softargmax3d_bwd', ('softargmax3d_bwd',)),
+                   ('optimiser', ('multi_tensor', 'foreach', 'sgd')),
+                   ('copies and casts', ('copy',))]
+
+
+def softargmax3d_bytes(rows, volume, width, direction):
+    """The least bytes the kernel moves: logits read once (and their gradient
+    written once), the rows' float32 coordinates, statistics and cotangent."""
+    if direction == 'fwd':
+        return rows * volume * width + rows * 5 * 4
+    return 2 * rows * volume * width + rows * 8 * 4
+
+
+def softargmax3d_phase():
+    """Both soft-argmax kernels against their plain versions on the card, in
+    float32 and bf16, at the integral model's shape and two small ones:
+    coordinates within ATOL_KERNEL, the statistics within 1e-6 (m) and
+    1e-5 (s) relative, the gradient within a bf16 ulp (float32: 1e-4) of
+    each element plus 1e-5 of the largest; autograd through the CUDA path against
+    autograd through the plain one; times in a CUDA graph against the bytes
+    bound, and the plain versions' eager times."""
+    from margipose_tpu_torch.ops import softargmax3d as sa
+
+    reports = []
+    for b, j, d, h, w in SOFTARGMAX3D_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device='cuda').manual_seed(1000 * b + d)
+            # logits of std 3: the largest voxel 1e-3 to 0.5 of a joint's mass
+            logits = (3 * torch.randn(b, j * d, h, w, generator=g, device='cuda')).to(dtype)
+            grad = torch.randn(b, j, 3, generator=g, device='cuda')
+            counters = reset_counts(SOFTARGMAX3D_KERNELS)
+            xyz, stats = sa.softargmax3d_fwd(logits, d)
+            dl = sa.softargmax3d_bwd(logits, d, xyz, stats, grad)
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            want_xyz, want_stats = sa.softargmax3d_fwd_plain(logits, d)
+            want_dl = sa.softargmax3d_bwd_plain(logits, d, want_xyz, want_stats, grad).float()
+            xyz_gap = float((xyz - want_xyz).abs().max())
+            m_gap = float(((stats[:, 0] - want_stats[:, 0]).abs()
+                           / want_stats[:, 0].abs().clamp(min=1.0)).max())
+            s_gap = float(((stats[:, 1] - want_stats[:, 1]).abs() / want_stats[:, 1]).max())
+            top = float(want_dl.abs().max())
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+            excess = float(((dl.float() - want_dl).abs() - rtol * want_dl.abs()).max()) / top
+            lc = logits.clone().requires_grad_()
+            lp = logits.clone().requires_grad_()
+            sa.softargmax3d(lc, d).backward(grad)
+            sa.softargmax3d_plain(lp, d).backward(grad)
+            autograd_excess = float(((lc.grad.float() - lp.grad.float()).abs()
+                                     - rtol * lp.grad.float().abs()).max()) / top
+            peak = float(torch.softmax(logits.float().reshape(b * j, -1), -1).amax(-1).median())
+            name = f'softargmax3d {b}x{j}x{d}x{h}x{w} {str(dtype)[6:]}'
+            phase(name, f'launches {launches}; xyz gap {xyz_gap:.3e}, m gap {m_gap:.3e}, s gap '
+                        f'{s_gap:.3e}, dl excess over {rtol:.3g} x |dl| {excess:.3e} of the '
+                        f'largest {top:.3e}, autograd {autograd_excess:.3e}; median largest '
+                        f'voxel {peak:.3e}')
+            if not (launches == {'softargmax3d_fwd': 1, 'softargmax3d_bwd': 1}
+                    and xyz_gap <= ATOL_KERNEL and m_gap <= 1e-6 and s_gap <= 1e-5
+                    and excess <= 1e-5 and autograd_excess <= 1e-5):
+                raise AssertionError(f'{name}: the kernels left their plain versions')
+            rows, volume, width = b * j, d * h * w, logits.element_size()
+            times = {'fwd': graph_ms(lambda: sa.softargmax3d_fwd(logits, d)),
+                     'bwd': graph_ms(lambda: sa.softargmax3d_bwd(logits, d, xyz, stats, grad))}
+            plain = {'fwd': median_ms(lambda: sa.softargmax3d_fwd_plain(logits, d), 3, 5),
+                     'bwd': median_ms(lambda: sa.softargmax3d_bwd_plain(
+                         logits, d, want_xyz, want_stats, grad), 3, 5)}
+            for direction in ('fwd', 'bwd'):
+                nbytes = softargmax3d_bytes(rows, volume, width, direction)
+                bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+                us = times[direction] * 1e3
+                phase(name, f'{direction}: {us:.2f} us in a CUDA graph, bound {bound_us:.2f} us '
+                            f'(bytes), {100 * bound_us / us:.1f}% of it; plain version '
+                            f'{plain[direction] * 1e3:.2f} us (eager)')
+                reports.append({'name': f'softargmax3d_{direction}', 'shape': [b, j, d, h, w],
+                                'dtype': str(dtype)[6:], 'us': us, 'bound_us': bound_us,
+                                'plain_us': plain[direction] * 1e3})
+            del logits, lc, lp, want_dl, dl
+    torch.cuda.empty_cache()
+    return reports
+
+
+def integral_phase():
+    """The integral model (Default_Integral_Desc: ResNet-50, D = 64, 256 px)
+    on its paths: bin.train_3d with the integral_model preset at batch 32 in
+    bf16 (INTEGRAL_STEPS steps and a validation batch; the soft-argmax
+    kernels counted from a device trace: the forward once a step and a
+    validation batch, the backward once a step, no loss-head kernel);
+    bin.eval_3d on the checkpoint in float32 and bf16, infer_single and the
+    serve runner (the forward kernel once a batch); 6 bf16 steps replayed
+    from the step's CUDA graph against 6 eager ones, within the graph
+    limits, and a replayed step's device time by kernel group."""
+    from margipose_tpu_torch.bin import eval_3d, infer_single, serve, train_3d
+    from margipose_tpu_torch.checkpoint import load_model
+    from margipose_tpu_torch.models import (
+        Default_Integral_Desc,
+        create_model,
+        data_specs_for_desc,
+    )
+    from margipose_tpu_torch.train.schedules import make_optimiser
+    from margipose_tpu_torch.train.steps import TrainState, eager, make_train_step, step_counts
+
+    kernels = dict(SOFTARGMAX3D_KERNELS, **LOSS_HEAD_KERNELS)
+    out_dir = os.path.join(WORK, 'integral')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, val_batches = INTEGRAL_STEPS, 1
+    torch.cuda.reset_peak_memory_stats()
+    result, host, ran = on_card(lambda: train_3d.main(
+        ['with', 'integral_model', 'synthetic', 'epochs=1', 'batch_size=32',
+         f'train_examples={32 * steps}', "val_datasets=['synthetic-32@1']", 'val_examples=32',
+         'metrics_every=1', 'seed=7', f'out_dir={out_dir}', 'experiment_id=integral']), kernels)
+    counts = result['step_counts']
+    launched = counts['eager_steps'] + counts['captures']
+    want_ran = {'softargmax3d_fwd': steps + val_batches, 'softargmax3d_bwd': steps,
+                'dsnt_jsd_fwd': 0, 'dsnt_jsd_bwd': 0}
+    want_host = {'softargmax3d_fwd': launched + val_batches, 'softargmax3d_bwd': launched,
+                 'dsnt_jsd_fwd': 0, 'dsnt_jsd_bwd': 0}
+    ms = [t * 1e3 for t in result['step_seconds']]
+    phase('integral train', f'kernels run {ran} (expected {want_ran}), host launches {host} '
+                            f'(expected {want_host}; {counts}); train loss '
+                            f'{result["train_loss"]:.6f}; device ms a step of 32: '
+                            + ', '.join(f'{m:.3f}' for m in ms) + '; peak memory '
+                            f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    if (ran != want_ran or host != want_host or result['step'] != steps
+            or not math.isfinite(result['train_loss'])):
+        raise AssertionError('integral train path: kernels, steps or loss off')
+
+    ckpt_dir = os.path.join(out_dir, 'integral', 'model-latest')
+    by_path = {}
+    for precision in ('float32', 'bfloat16'):
+        (rows, stats), host, ran = on_card(lambda: eval_3d.main(
+            ['--model', ckpt_dir, '--dataset', 'synthetic-64', '--batch-size', '32',
+             '--precision', precision, '--device', 'cuda']), kernels)
+        want = {'softargmax3d_fwd': 2, 'softargmax3d_bwd': 0, 'dsnt_jsd_fwd': 0, 'dsnt_jsd_bwd': 0}
+        finite = all(math.isfinite(v) for m in eval_3d.METRICS for v in rows[m])
+        phase('integral eval', f'{precision}: kernels run {ran}, host {host} (expected {want}); '
+                               f'overall {eval_3d.overall_metrics(rows)}, mean loss '
+                               f'{stats["mean_loss"]}')
+        if ran != want or host != want or not finite or len(rows['mpjpe']) != 64:
+            raise AssertionError(f'integral eval ({precision}): kernels or metrics off')
+        by_path[f'integral_eval_{precision}'] = host
+    model, desc = load_model(ckpt_dir, 'cuda')
+    import PIL.Image
+
+    (_, coords), host, ran = on_card(lambda: infer_single.infer_image(
+        model, PIL.Image.open(IMAGE), desc, device='cuda'), kernels)
+    runner = serve.model_runner(model, data_specs_for_desc(desc).input_specs, 'bfloat16',
+                                torch.device('cuda'))
+    frames = np.random.default_rng(3).integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    served, serve_host, serve_ran = on_card(lambda: runner(frames), kernels)
+    phase('integral infer', f'kernels run {ran}, host {host}; coordinates finite '
+                            f'{bool(np.isfinite(coords).all())}; serve runner at batch 8 in bf16: '
+                            f'kernels run {serve_ran}, answers {served.shape} finite '
+                            f'{bool(np.isfinite(served).all())}')
+    want = {'softargmax3d_fwd': 1, 'softargmax3d_bwd': 0, 'dsnt_jsd_fwd': 0, 'dsnt_jsd_bwd': 0}
+    if not (ran == host == serve_ran == serve_host == want and np.isfinite(coords).all()
+            and np.isfinite(served).all()):
+        raise AssertionError('integral infer or serve: kernels or answers off')
+    by_path['integral_infer'], by_path['integral_serve'] = host, serve_host
+    del model, runner
+
+    base = create_model(Default_Integral_Desc, generator=torch.Generator().manual_seed(0))
+    base = base.cuda()
+    states, step_fns, losses = [], [], [[], []]
+    for _ in range(2):
+        m = copy.deepcopy(base)
+        states.append(TrainState(m, make_optimiser('1cycle', m.parameters(), 1.0, max_iters=100)))
+        step_fns.append(make_train_step('jsd', 'bfloat16'))
+    start = {k: p.detach().clone() for k, p in base.named_parameters()}
+    del base
+    for seed in range(6):
+        batch = {k: v.cuda() for k, v in flagship_batch(32, seed=60 + seed).items()}
+        losses[0].append(step_fns[0](states[0], batch)['loss'])
+        losses[1].append(eager(step_fns[1], states[1], batch)['loss'])
+    got, want = (torch.stack(x).double().cpu().numpy() for x in losses)
+    loss_gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    change = [{k: float((p.detach() - start[k]).norm()) for k, p in s.model.named_parameters()}
+              for s in states]
+    update_gap, worst = median_leaf_gap(*change)
+    counts = step_counts(step_fns[0])
+    phase('integral graph', f'bf16 graphed vs eager over 6 steps (mixed 2D/3D rows): loss gap '
+                            f'{loss_gap:.3e} (limit {GRAPH_LOSS_GAP}), update gap median '
+                            f'{update_gap:.3e} (limit {GRAPH_UPDATE_GAP}), worst leaf '
+                            f'{worst:.3e}; losses {got.tolist()}; counts {counts}')
+    if not (loss_gap <= GRAPH_LOSS_GAP and update_gap <= GRAPH_UPDATE_GAP
+            and counts == {'eager_steps': 1, 'captures': 1, 'replays': 4}
+            and np.isfinite(got).all()):
+        raise AssertionError('integral graph: the graphed step left the eager one or did not '
+                             'replay')
+    batch = {k: v.cuda() for k, v in flagship_batch(32, seed=5).items()}
+    _, host, ran = on_card(lambda: step_fns[0](states[0], batch), kernels)
+    phase('integral graph', f'one replayed step: kernels run {ran}, host launches {host}')
+    if ran != {'softargmax3d_fwd': 1, 'softargmax3d_bwd': 1, 'dsnt_jsd_fwd': 0,
+               'dsnt_jsd_bwd': 0} or any(host.values()):
+        raise AssertionError('integral graph: a replayed step ran other kernels')
+    replayed = profiled(lambda: step_fns[0](states[0], batch))
+    report_trace('integral graph', 'one replayed bf16 train step of 32', *replayed[:3],
+                 INTEGRAL_GROUPS)
+    eagerly = profiled(lambda: eager(step_fns[1], states[1], batch))
+    report_trace('integral graph', 'one eager bf16 train step of 32', *eagerly[:3],
+                 INTEGRAL_GROUPS)
+    del states, step_fns
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card',
@@ -3019,6 +3249,8 @@ def main():
     by_path['serve'] = serve_phase(ckpt)
     by_path.update(stems_phase())
     by_path.update(chatterbox_phase())
+    volumetric = softargmax3d_phase()
+    by_path.update(integral_phase())
     by_path.update(datasets_phase(model, ckpt))
     by_path.update(device_aug_phase(model))
     by_path.update(distributed_phase(model, ckpt))
@@ -3032,6 +3264,7 @@ def main():
         k['launches_by_path'] = {path: None if counts is None else counts[k['name']]
                                  for path, counts in by_path.items()}
     print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'volumetric_kernels': volumetric}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}), flush=True)
     return 0

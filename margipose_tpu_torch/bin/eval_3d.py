@@ -42,7 +42,6 @@ from margipose_tpu_torch.eval import gather_3d_metrics, prepare_for_3d_evaluatio
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc, VNect_Common_Skeleton
 from margipose_tpu_torch.models import data_specs_for_desc
-from margipose_tpu_torch.models.margipose import margipose_joint_losses, margipose_masked_loss
 from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
 from margipose_tpu_torch.utils import init_algorithms, seed_all
@@ -268,15 +267,16 @@ def overall_metrics(rows) -> dict:
 def make_forward(model, pixelwise_loss, compute_dtype=None, distributed=False, group=None):
     """``forward(images, target, mask, valid_depth) -> (xyz, loss)``, both
     float32: the model runs under ``compute_dtype_scope``, the loss outside
-    it (its heatmaps are float32 either way); with ``distributed``, over the
-    global batch of ``group`` (the mesh's 'data' group; None: every
-    process)."""
+    it (its heatmaps and coordinates are float32 either way). The loss is
+    the model's own ``masked_loss``, with ``pixelwise_loss`` for the models
+    that have a pixelwise term; with ``distributed``, over the global batch
+    of ``group`` (the mesh's 'data' group; None: every process)."""
     def forward(images, target, mask, valid_depth):
         with torch.inference_mode():
             with compute_dtype_scope(compute_dtype, images.device):
                 xyz, out = model(images)
-            loss = margipose_masked_loss(out, target, mask, valid_depth, pixelwise_loss,
-                                         distributed, group)
+            loss = model.masked_loss(out, target, mask, valid_depth, distributed, group,
+                                     pixelwise_loss=pixelwise_loss)
         return xyz.float(), loss
     return forward
 
@@ -325,7 +325,7 @@ def make_data_parallel_forward(model, devices, pixelwise_loss, compute_dtype=Non
                 x, t, m, v = (b.to(dev, non_blocking=True) for b in block)
                 with compute_dtype_scope(compute_dtype, dev):
                     xyz, out = replica(x)
-                losses = margipose_joint_losses(out, t, v, pixelwise_loss)
+                losses = replica.joint_losses(out, t, v, pixelwise_loss=pixelwise_loss)
                 nums.append((losses * m).sum().to(home))
                 dens.append(m.sum().to(home))
                 xyzs.append(xyz.float().to(home))

@@ -54,6 +54,7 @@ from margipose_tpu_torch.data.specs import device_input, to_device
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.models import (
     Default_Chatterbox_Desc,
+    Default_Integral_Desc,
     Default_MargiPose_Desc,
     create_model,
     data_specs_for_desc,
@@ -84,6 +85,8 @@ ex = Experiment()
 # Model presets (reference: src/margipose/bin/train_3d.py:230-231)
 ex.add_named_config('margipose_model', model_desc=Default_MargiPose_Desc)
 ex.add_named_config('chatterbox_model', model_desc=Default_Chatterbox_Desc)
+# the volumetric baseline (Sun et al., arXiv:1711.08229; models/integral.py)
+ex.add_named_config('integral_model', model_desc=Default_Integral_Desc)
 
 # Optimiser presets (reference: src/margipose/bin/train_3d.py:234-239)
 ex.add_named_config('rmsprop', optim_algorithm='rmsprop', epochs=150, lr=2.5e-3,

@@ -11,6 +11,7 @@ from __future__ import annotations
 from margipose_tpu_torch.data.specs import DataSpecs, ImageSpecs, JointsSpecs
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc
 from margipose_tpu_torch.models.chatterbox import ChatterboxModel, Default_Chatterbox_Desc
+from margipose_tpu_torch.models.integral import Default_Integral_Desc, IntegralPoseModel
 from margipose_tpu_torch.models.margipose import Default_MargiPose_Desc, MargiPoseModel
 
 
@@ -73,10 +74,19 @@ def _create_chatterbox(model_desc: dict, generator=None) -> ChatterboxModel:
     )
 
 
+def _create_integral(model_desc: dict, generator=None) -> IntegralPoseModel:
+    return IntegralPoseModel(
+        n_joints=CanonicalSkeletonDesc.n_joints,
+        depth_dim=model_desc["settings"].get("depth_dim", 64),
+        generator=generator,
+    )
+
+
 # (type, caret range, constructor)
 MODEL_FACTORIES = [
     ("margipose", "^6.0.0", _create_margipose),
     ("chatterbox", "^1.3.0", _create_chatterbox),
+    ("integral", "^1.0.0", _create_integral),
 ]
 
 
@@ -90,6 +100,7 @@ def create_model(model_desc: dict, generator=None):
 
 __all__ = [
     "Default_Chatterbox_Desc",
+    "Default_Integral_Desc",
     "Default_MargiPose_Desc",
     "MODEL_FACTORIES",
     "create_model",

@@ -15,7 +15,7 @@ from __future__ import annotations
 from torch import nn
 
 from margipose_tpu_torch.models.layers import BatchNorm2d, init_parameters
-from margipose_tpu_torch.models.margipose import ModelOutput, heatmaps_to_coords
+from margipose_tpu_torch.models.margipose import MarginalLoss, ModelOutput, heatmaps_to_coords
 from margipose_tpu_torch.models.resnet import (
     ResLayer,
     ResNet34FeatureExtractor,
@@ -144,7 +144,7 @@ class ChatterboxCnn(nn.Module):
         return self.up_convs(self.down_convs(x))
 
 
-class ChatterboxModel(nn.Module):
+class ChatterboxModel(MarginalLoss, nn.Module):
     """(reference: src/margipose/models/chatterbox_model.py:223-289)"""
 
     def __init__(self, n_joints=17, pixelwise_loss='jsd', generator=None):

@@ -144,7 +144,23 @@ def heatmaps_to_coords(xy_hm, zy_hm, xz_hm) -> torch.Tensor:
     return torch.cat([xy, z], -1)
 
 
-class MargiPoseModel(nn.Module):
+class MarginalLoss:
+    """The loss of a model whose output is a ``ModelOutput``, which the train
+    and eval steps call: ``pixelwise_loss`` names the pixelwise term ('jsd'
+    or None)."""
+
+    def joint_losses(self, out: ModelOutput, target, valid_depth, pixelwise_loss='jsd'):
+        """``margipose_joint_losses``: per-joint losses [B, J]."""
+        return margipose_joint_losses(out, target, valid_depth, pixelwise_loss)
+
+    def masked_loss(self, out: ModelOutput, target, joint_mask, valid_depth, distributed=False,
+                    group=None, pixelwise_loss='jsd'):
+        """``margipose_masked_loss``: the masked mean of ``joint_losses``."""
+        return margipose_masked_loss(out, target, joint_mask, valid_depth, pixelwise_loss,
+                                     distributed, group)
+
+
+class MargiPoseModel(MarginalLoss, nn.Module):
     """(reference: src/margipose/models/margipose_model.py:203-267)"""
 
     def __init__(self, n_joints=17, n_stages=4, axis_permutation=True,

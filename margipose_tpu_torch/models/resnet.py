@@ -1,4 +1,5 @@
-"""ResNet-18/34/50 trunks (conv1 .. layer2) and dilated layer3/4 groups, NCHW.
+"""ResNet-18/34/50 trunks (conv1 .. layer2), dilated layer3/4 groups and the
+whole stride-32 ResNet-50, NCHW.
 
 Counterpart of ``margipose_tpu/models/resnet.py``: the torchvision ResNet
 pieces the reference uses as stems (reference:
@@ -143,6 +144,32 @@ class ResNetStem(nn.Sequential):
         super().__init__(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), BatchNorm2d(64),
             nn.ReLU(inplace=True), nn.MaxPool2d(3, stride=2, padding=1), *layers)
+
+
+class ResNet50Trunk(nn.Module):
+    """The whole torchvision ResNet-50 but its avgpool and fc: conv1, bn1,
+    maxpool, then layer1..layer4 of Bottleneck blocks (3, 4, 6, 3) with the
+    stride on conv2, keys as torchvision's (``layer4.2.bn3``,
+    ``layer3.0.downsample.0``). 256x256 input -> 2048 channels at 8x8."""
+
+    out_channels = 2048
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        in_ch = 64
+        widths = zip(RESNET_LAYERS['resnet50'], (64, 128, 256, 512))
+        for i, (n_blocks, planes) in enumerate(widths):
+            layer = ResLayer(in_ch, _bottleneck_layer_cfgs(n_blocks, planes, 1 if i == 0 else 2),
+                             Bottleneck)
+            setattr(self, f'layer{i + 1}', layer)
+            in_ch = layer.out_channels
+
+    def forward(self, x):
+        x = self.maxpool(self.bn1(self.conv1(x)).relu_())
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
 class ResNet34FeatureExtractor(nn.Module):

@@ -1,14 +1,16 @@
 """Train and eval steps, on one device or under a process group.
 
 Counterpart of ``margipose_tpu/train/steps.py:75-208``: forward in train
-mode, masked 2D/3D loss through the fused DSNT+JSD head, backward (the
-head's gradient is the CUDA backward kernel on the card), optimiser update
-and BN running-stat update. With ``compute_dtype`` bfloat16 the forward and
-the loss run under autocast (``parallel/precision.py``) and the backward and
-the update outside it: parameters, their gradients, the optimiser state and
-the BN statistics stay float32. bf16 has float32's exponent range, so there
-is no loss scaling, as in the JAX step. Where the JAX step returns a new state, the
-port updates the model, the optimiser and the step counter in place.
+mode, the model's own masked 2D/3D loss (its ``masked_loss``: MargiPose's
+and Chatterbox's through the fused DSNT+JSD head, the integral model's L1 on
+its soft-argmax), backward (the heads' gradients are CUDA backward kernels
+on the card), optimiser update and BN running-stat update. With
+``compute_dtype`` bfloat16 the forward and the loss run under autocast
+(``parallel/precision.py``) and the backward and the update outside it:
+parameters, their gradients, the optimiser state and the BN statistics stay
+float32. bf16 has float32's exponent range, so there is no loss scaling, as
+in the JAX step. Where the JAX step returns a new state, the port updates
+the model, the optimiser and the step counter in place.
 
 While a process group is active (``parallel/mesh.py``) the steps run as the
 JAX package's shard_map steps do (``margipose_tpu/train/steps.py:48-70``):
@@ -45,7 +47,6 @@ from torch.nn.parallel import DistributedDataParallel
 
 from margipose_tpu_torch import tracing
 from margipose_tpu_torch.bin.eval_3d import make_forward
-from margipose_tpu_torch.models.margipose import margipose_masked_loss
 from margipose_tpu_torch.parallel.mesh import (
     ColumnParallelConv,
     average_replicated_gradients,
@@ -122,14 +123,18 @@ def eager(train_step, state: TrainState, batch):
 def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
     """``train_step(state, batch) -> {loss, pred}``, updating ``state`` in place.
 
-    ``batch`` holds device tensors: input [B, 3, H, W] f32, target [B, J, >=3]
-    f32, joint_mask [B, J] f32, valid_depth [B] int: this process's rows
+    The loss is the model's own: ``state.model.masked_loss(out, target,
+    joint_mask, valid_depth, distributed, group, pixelwise_loss=...)``
+    (``models/margipose.MarginalLoss`` for MargiPose and Chatterbox, where
+    ``pixelwise_loss`` names the pixelwise term; the integral model's L1,
+    which has none). ``batch`` holds device tensors: input [B, 3, H, W]
+    f32, target [B, J, >=3] f32, joint_mask [B, J] f32, valid_depth [B] int: this process's rows
     (``parallel.mesh.shard_batch``). ``loss`` (scalar) and ``pred`` ([B, J,
     3]) stay on the device: nothing is read back; each call returns fresh
     tensors. ``mesh``: the ``parallel.mesh.Mesh`` the model was placed on
     (None: every process on the data axis).
 
-    On one card the whole step (forward, loss with both loss-head kernels,
+    On one card the whole step (forward, loss with the heads' kernels,
     backward, the SGD update) is captured in a CUDA graph and replayed, so
     the host launches it once, not some 9,000 kernels. A step whose
     ``graph_key`` is None runs eagerly (the CPU, a process group, a mesh,
@@ -173,9 +178,9 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
             with tracing.span('train.forward'):
                 xyz, out = model(batch['input'])
             with tracing.span('train.loss'):
-                loss = margipose_masked_loss(out, batch['target'][..., :3],
-                                             batch['joint_mask'], batch['valid_depth'],
-                                             pixelwise_loss, distributed, group)
+                loss = state.model.masked_loss(out, batch['target'][..., :3],
+                                               batch['joint_mask'], batch['valid_depth'],
+                                               distributed, group, pixelwise_loss=pixelwise_loss)
         state.optimiser.zero_grad()
         with tracing.span('train.backward'):
             loss.backward()
@@ -247,8 +252,9 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
 
 def make_eval_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
     """``eval_step(model, batch) -> {loss, pred}`` in eval mode, no gradients;
-    under a process group the loss is the global batch's (over ``mesh``'s
-    'data' axis, as in ``make_train_step``)."""
+    the loss is the model's own (``bin/eval_3d.make_forward``); under a
+    process group it is the global batch's (over ``mesh``'s 'data' axis, as
+    in ``make_train_step``)."""
     group = None if mesh is None else mesh.data_group
 
     def eval_step(model, batch):
