@@ -1,9 +1,11 @@
 """NCHW building blocks with the reference torch ``state_dict`` layout.
 
 Counterparts of ``margipose_tpu/models/layers.py`` and ``ops/convs.py``:
-convolution, batch norm, ReLU and pooling are torch's own modules (cuDNN on
-the card). Child names follow the reference Sequential indices, so the
-port's keys are the keys ``margipose_tpu.train.torch_import`` exports.
+convolution, ReLU and pooling are torch's own modules (cuDNN on the card),
+and so is batch norm in eval mode; train-mode batch norm runs the port's
+kernels on the card (``ops/batch_norm.py``). Child names follow the
+reference Sequential indices, so the port's keys are the keys
+``margipose_tpu.train.torch_import`` exports.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from margipose_tpu_torch.ops.batch_norm import batch_norm_train, keep
 from margipose_tpu_torch.parallel import mesh
 
 
@@ -23,11 +26,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     of the processes in ``process_group``, the mesh's 'data' group once
     ``mesh.shard_variables`` has placed the model (None: every process).
 
-    Both frameworks normalise with the biased batch variance; torch folds the
-    unbiased one into ``running_var``, a factor n/(n-1) with n = B*H*W per
-    channel. The fix-up needs no second pass over the activation: with f the
-    EMA factor, torch leaves ``new = (1-f) old + f var_u``, and
-    ``new - (new - (1-f) old) / n`` is ``(1-f) old + f var_u (n-1)/n``.
+    Train mode with no group goes to ``ops/batch_norm.batch_norm_train``:
+    on the card the hand-written kernels (statistics, normalisation and the
+    running statistics in one launch, the gradient in one more), elsewhere
+    torch's batch norm and a fix-up of its unbiased running variance. Eval
+    mode is torch's own.
     """
 
     process_group = None
@@ -37,22 +40,14 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if mesh.group_active():
             return self._global_forward(x)
-        old = self.running_var.clone()
-        out = super().forward(x)  # updates the stats and num_batches_tracked
-        n = x.numel() // x.shape[1]
-        # through .data: autograd saved running_var with the batch-norm node
-        # (its train-mode backward never reads it), and an in-place update of
-        # the tracked tensor would fail the saved-version check
-        var = self.running_var.data
-        var.sub_((var - self._keep() * old) / n)
-        return out
+        self._check_input_dim(x)
+        return batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                self.num_batches_tracked, self.momentum, self.eps)
 
     def _keep(self):
         """1 - the EMA factor of this update (after num_batches_tracked's
         increment), as torch computes it."""
-        if self.momentum is None:  # cumulative average
-            return 1.0 - 1.0 / self.num_batches_tracked.to(self.running_var.dtype)
-        return 1.0 - self.momentum
+        return keep(self.momentum, self.num_batches_tracked, self.running_var)
 
     def _global_forward(self, x):
         """Train-mode batch norm over the group's rows. Per channel,
