@@ -167,18 +167,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                    times printed; three planted faults (a resume one update
                    short, BN statistics reset, an epoch's records removed)
                    must each fail the verifier.
- 24. bench         the port's bench (python -m margipose_tpu_torch.bench,
-                   run here through bench.run_bench) on the flagship at full
-                   width: float32 inference at batch 32, the bf16 sweep over
-                   32, 64 and 128, batch-1 latency, train steps in bf16 and
-                   float32, the serving ceiling, BENCH_ITERS timed calls a
-                   segment, and bench_reference.py in its child process on
-                   the same card (TF32 off) for vs_baseline; its JSON line
-                   printed, every key present, every number finite,
-                   positive and plausible; no kernel launched by inference,
-                   batch 1 or serve, both kernels from the host once an
-                   eager or capturing train step.
- 25. integral      (run after phase 17) the volumetric soft-argmax kernels
+ 24. integral      (run after phase 17) the volumetric soft-argmax kernels
                    (csrc/softargmax3d.cu) against their plain versions in
                    float32 and bf16 at the integral model's shape (544
                    volumes of 64^3) and two small ones, timed in a CUDA
@@ -188,7 +177,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                    kernel), bin.eval_3d, infer_single and the serve runner;
                    its bf16 train step replayed from a CUDA graph against
                    eager steps, and a replayed step by kernel group.
- 26. batch norm    the train-mode batch-norm kernels (csrc/batch_norm.cu)
+ 25. batch norm    the train-mode batch-norm kernels (csrc/batch_norm.cu)
                    against their plain version (torch's batch norm and the
                    running-variance fix-up) in float32 and bf16 at the train
                    cells' shapes and three single-value layouts, the same
@@ -197,7 +186,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                    bit-equal to eager ones (flagship bf16 and float32,
                    integral, Chatterbox) with each batch norm's two kernels
                    once a step and no ATen train-mode batch-norm kernel (the
-                   bin train paths of phases 7, 12-13, 15, 19 and 25 check
+                   bin train paths of phases 7, 12-13, 15, 19 and 24 check
                    the same in their device traces).
 The float32 phases (4-9 and the float32 parts of 16-17) pass precision
 float32 and float32 input upload explicitly. Each path's kernel launches are
@@ -206,8 +195,8 @@ runs both loss-head kernels with no host launch: the in-process train paths
 run under torch.profiler and report the kernels their device trace saw run,
 each checked against one a train step (and the forward once a validation
 batch) and the wrappers' host launches against one an eager or capturing
-step; the soak and the bench, whose runs are too long to trace, check the
-host launches against the step's counts. Then one JSON line of per-kernel numbers, and last
+step; the soak, whose runs are too long to trace, checks the host launches
+against the step's counts. Then one JSON line of per-kernel numbers, and last
 the result line {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result. The flagship's train paths run 4 steps; the
 later paths run 2-3, and phase 23 overlaps two of its runs, to keep the
@@ -245,6 +234,9 @@ import urllib.request
 import numpy as np
 
 import torch
+
+from margipose_tpu_torch.ops import launch_counts, zero_launch_counts
+from margipose_tpu_torch.ops._build import KERNELS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
@@ -293,17 +285,6 @@ SOAK_EPOCHS = 12           # phase 23's full schedule: 12 epochs of 8 steps at b
 SOAK_KILL_AT = 6           # ... SIGKILLed once this epoch's checkpoint is saved
 SOAK_CHATTERBOX_EPOCHS = 2  # phase 23's Chatterbox soak: epochs of 20 steps at batch 16
 REHEARSAL_STEPS = 4        # --multi-gpu's two-node rehearsal: steps of 32 global rows
-BENCH_ITERS = 5            # phase 24: timed calls a segment (the bench's own: FULL_ITERS)
-# phase 24: the range each number of the bench's line must fall in on an H100
-BENCH_PLAUSIBLE = {
-    'value': (50, 20000), 'infer_images_per_sec_float32': (50, 5000),
-    'train_images_per_sec': (10, 5000), 'train_images_per_sec_float32': (10, 5000),
-    'mfu': (1e-3, 1), 'train_mfu': (1e-3, 1), 'infer_latency_ms_b1': (1, 1000),
-    'serve_images_per_sec': (10, 20000), 'serve_batcher_overhead_frac': (0, 1),
-    'serve_device_forward_frac': (0, 2), 'serve_upload_mb_per_sec': (0.5, 1e5),
-    'vs_baseline': (0.25, 4), 'flops_per_image': (0.94 * 51.3e9, 1.06 * 51.3e9),
-    'peak_memory_gib': (0.5, 80), 'power_limit_w': (100, 1000),
-    'reference_infer_images_per_sec': (10, 5000), 'reference_train_images_per_sec': (1, 5000)}
 # Chatterbox's heads' last 1x1 convolutions scaled: soft heatmaps from random
 # weights (mean peaks about 0.15-0.25)
 CHATTERBOX_HEAD_SCALES = {'xy_hm_cnn': 0.3, 'zy_hm_cnn': 0.6, 'xz_hm_cnn': 0.6}
@@ -613,44 +594,34 @@ def sweep_phase(reports):
         report['sweep_graph_us'] = us
 
 
-# the heads' kernels by the names a device trace gives them: the loss head's
-# (MargiPose, Chatterbox) and the integral model's soft-argmax
-LOSS_HEAD_KERNELS = {'dsnt_jsd_fwd': 'dsnt_jsd_fwd_kernel', 'dsnt_jsd_bwd': 'dsnt_jsd_bwd_kernel'}
-SOFTARGMAX3D_KERNELS = {'softargmax3d_fwd': 'softargmax3d_fwd_kernel',
-                        'softargmax3d_bwd': 'softargmax3d_bwd_kernel'}
+# the heads' kernels by their entry points (ops/_build.KERNELS, which knows
+# the names a device trace gives them): the loss head's (MargiPose,
+# Chatterbox), the integral model's soft-argmax and train-mode batch norm
+LOSS_HEAD_KERNELS = ('dsnt_jsd_fwd', 'dsnt_jsd_bwd')
+SOFTARGMAX3D_KERNELS = ('softargmax3d_fwd', 'softargmax3d_bwd')
+BATCH_NORM_KERNELS = ('batch_norm_train_fwd', 'batch_norm_train_bwd')
 
 
 # the train-mode batch-norm kernels by the names a device trace gives them:
-# the port's, once a batch norm each way (one cluster launch, or a split
-# path's partial and apply kernels, counted by the apply kernel), and ATen's,
-# which the port no longer runs
+# the port's, once a batch norm each way, and ATen's, which the port no
+# longer runs
 BATCH_NORM_WORDS = {
-    'fwd': ('batch_norm_train_fwd_kernel', 'batch_norm_train_fwd_apply_kernel'),
-    'bwd': ('batch_norm_train_bwd_kernel', 'batch_norm_train_bwd_apply_kernel'),
+    'fwd': KERNELS['batch_norm_train_fwd'].traced,
+    'bwd': KERNELS['batch_norm_train_bwd'].traced,
     'aten': ('batch_norm_collect_statistics', 'batch_norm_backward'),
 }
 BATCH_NORM_RAN = {}  # the batch-norm kernels of on_card's last trace, by BATCH_NORM_WORDS
 
 
-def launch_counters(names=LOSS_HEAD_KERNELS):
-    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
-    from margipose_tpu_torch.ops.softargmax3d import softargmax3d_bwd, softargmax3d_fwd
-
-    every = {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd,
-             'softargmax3d_fwd': softargmax3d_fwd, 'softargmax3d_bwd': softargmax3d_bwd}
-    return {name: every[name] for name in names}
-
-
 def reset_counts(names=LOSS_HEAD_KERNELS):
-    """The named kernels' launch counts set to 0, just before a path runs."""
-    counters = launch_counters(names)
-    for fn in counters.values():
-        fn.launches = 0
-    return counters
+    """The named kernels' launch counts set to 0, just before a path runs;
+    returns the names, for read_counts."""
+    zero_launch_counts(*names)
+    return names
 
 
-def read_counts(counters):
-    return {name: fn.launches for name, fn in counters.items()}
+def read_counts(names):
+    return launch_counts(*names)
 
 
 def on_card(fn, kernels=LOSS_HEAD_KERNELS):
@@ -675,8 +646,8 @@ def on_card(fn, kernels=LOSS_HEAD_KERNELS):
     BATCH_NORM_RAN.update(dict.fromkeys(BATCH_NORM_WORDS, 0))
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
-            for name, word in kernels.items():
-                ran[name] += word in e.name()
+            for name in kernels:
+                ran[name] += any(w in e.name() for w in KERNELS[name].traced)
             for name, words in BATCH_NORM_WORDS.items():
                 BATCH_NORM_RAN[name] += any(w in e.name() for w in words)
     return out, host, ran
@@ -710,10 +681,52 @@ def loss_head_expected(counts, steps, val_batches):
             {'dsnt_jsd_fwd': host + val_batches, 'dsnt_jsd_bwd': host})
 
 
+@torch.no_grad()
+def calibrate_bn(model, images, generator):
+    """BN running stats from one train-mode pass over ``images``, perturbed
+    at random."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = None  # cumulative average: one pass gives the batch stats
+    model.train()(images)
+    model.eval()
+    for bn in bns:
+        bn.momentum = 0.1
+        n = bn.num_features
+        bn.running_mean += 0.05 * torch.randn(n, generator=generator).to(bn.running_mean)
+        bn.running_var *= (0.8 + 0.45 * torch.rand(n, generator=generator)).to(bn.running_var)
+
+
+@torch.no_grad()
+def randomize_batch_norm(model, images, generator):
+    """BN running stats from one train-mode pass over ``images``, perturbed
+    at random; the last residual block of every column scaled down, so the
+    heatmaps are neither flat nor one-hot (as with trained weights)."""
+    calibrate_bn(model, images, generator)
+    for plane in ('xy', 'zy', 'xz'):
+        for column in getattr(model.inner, f'{plane}_hm_cnns'):
+            last = column.up_layers[4]
+            for bn in (last.module[4], last.shortcut[1]):
+                bn.weight *= 0.5
+                bn.bias *= 0.5
+
+
+def seeded_model(desc, device, seed=0):
+    """MargiPose ``desc`` on ``device``, its weights from ``seed`` and its
+    batch-norm statistics from ``randomize_batch_norm`` on 8 seeded images."""
+    from margipose_tpu_torch.models import create_model
+
+    g = torch.Generator().manual_seed(seed)
+    model = create_model(desc, generator=g).to(device)
+    size = desc['settings'].get('input_size', 256)
+    randomize_batch_norm(model, torch.randn(8, 3, size, size, generator=g).to(device), g)
+    return model
+
+
 def flagship(device):
     """The flagship from seed 0, BN statistics calibrated and perturbed, the
-    columns' last blocks scaled down: the bench's model (bench.seeded_model)."""
-    from margipose_tpu_torch.bench import seeded_model
+    columns' last blocks scaled down (``seeded_model``)."""
     from margipose_tpu_torch.models import Default_MargiPose_Desc
 
     return seeded_model(Default_MargiPose_Desc, device)
@@ -1531,7 +1544,6 @@ def stems_phase():
     weights with calibrated BN: card against CPU at batch 2, a batch of 32
     timed; resnet34 traced; then the resnet34 train path with a grafted
     backbone."""
-    from margipose_tpu_torch.bench import randomize_batch_norm
     from margipose_tpu_torch.models import create_model
 
     for variant in STEMS:
@@ -1675,7 +1687,6 @@ def eval_bin_phase(name, ckpt, precision, ship, examples=64):
 def chatterbox(device):
     """Chatterbox from seeded random weights: calibrated, perturbed BN stats
     and the heads' last convolutions scaled down (soft heatmaps)."""
-    from margipose_tpu_torch.bench import calibrate_bn
     from margipose_tpu_torch.models import Default_Chatterbox_Desc, create_model
 
     g = torch.Generator().manual_seed(30)
@@ -2827,58 +2838,6 @@ def soak_phase():
     return by_path
 
 
-def bench_phase():
-    """Phase 24: the port's bench (margipose_tpu_torch.bench.run_bench) on
-    the flagship at full width: its full sweep, BENCH_ITERS timed calls a
-    segment, bench_reference.py for real in its child process; the line
-    printed. Every key present; every number finite, positive and within
-    BENCH_PLAUSIBLE; the served batches full. The inference, batch-1 and
-    serve segments launch no kernel, each train segment both once a step.
-    Returns the launches by path."""
-    from margipose_tpu_torch import bench
-
-    t0 = time.perf_counter()
-    counters = reset_counts()
-    (line, records), _ = capture_stdout(lambda: bench.run_bench('cuda', iters=BENCH_ITERS))
-    launches = read_counts(counters)
-    for name, record in records.items():
-        phase('bench', f'segment {name}: {record}')
-    numbers = {k: v for k, v in line.items()
-               if isinstance(v, (int, float)) and not isinstance(v, bool)}
-    wrong = [k for k in bench.LINE_KEYS if k not in line or line[k] is None]
-    wrong += [k for k, v in numbers.items() if not (math.isfinite(v) and v > 0)]
-    wrong += [k for k, (lo, hi) in BENCH_PLAUSIBLE.items() if not lo <= numbers.get(k, lo) <= hi]
-    if line['serve_batch_occupancy'] < 0.95 * 32:  # the base batch: the drains keep it full
-        wrong.append('serve_batch_occupancy')
-    if (line['device_name'], line['torch_version']) != (torch.cuda.get_device_name(0),
-                                                         torch.__version__):
-        wrong.append('device_name')
-    segments = {'bench_infer': ('infer_float32', 'infer_bfloat16'), 'bench_b1': ('infer_b1',),
-                'bench_serve': ('serve',), 'bench_train': ('train_bfloat16', 'train_float32')}
-    by_path = {path: {k: sum(records[name]['launches'][k] for name in names) for k in launches}
-               for path, names in segments.items()}
-    for path in ('bench_infer', 'bench_b1', 'bench_serve'):
-        if any(by_path[path].values()):
-            wrong.append(f'{path} launched {by_path[path]}')
-    trains = [records[name] for name in segments['bench_train']]
-    for record in trains:
-        counts = record['step_counts']
-        host = counts['eager_steps'] + counts['captures']
-        if (record['launches'] != dict.fromkeys(launches, host)
-                or sum(counts.values()) != record['calls']):
-            wrong.append(f'a train segment launched {record["launches"]} from the host in '
-                         f'{record["calls"]} steps ({counts})')
-    if launches != by_path['bench_train']:
-        wrong.append(f'the bench launched {launches} in all')
-    phase('bench', f'host launches {launches}: train {sum(r["calls"] for r in trains)} steps '
-                   f'(one an eager or capturing step), inference, batch 1 and serve none; '
-                   f'phase 24 took '
-                   f'{time.perf_counter() - t0:.1f} s')
-    if wrong:
-        raise AssertionError(f'the bench\'s line or launches are wrong: {wrong}')
-    return by_path
-
-
 def soak_main():
     """``python3 chip_smoke.py --soak``: the soaks at their full length on the
     card. The 150-epoch schedule on synthetic data, SIGKILLed once epoch 75
@@ -3167,7 +3126,7 @@ def integral_phase():
     from margipose_tpu_torch.train.schedules import make_optimiser
     from margipose_tpu_torch.train.steps import TrainState, eager, make_train_step, step_counts
 
-    kernels = dict(SOFTARGMAX3D_KERNELS, **LOSS_HEAD_KERNELS)
+    kernels = SOFTARGMAX3D_KERNELS + LOSS_HEAD_KERNELS
     out_dir = os.path.join(WORK, 'integral')
     shutil.rmtree(out_dir, ignore_errors=True)
     steps, val_batches = INTEGRAL_STEPS, 1
@@ -3390,10 +3349,10 @@ def batch_norm_phase():
             width = x.element_size()
             per = bn.vector_values(x)
             plans = [bn.plan(c, b * h * w, width, t, per) for t in (1, 2)]
-            bn.batch_norm_train_fwd.launches = bn.batch_norm_train_bwd.launches = 0
+            counters = reset_counts(BATCH_NORM_KERNELS)
             got = batch_norm_run(bn.batch_norm_train, x, dy, params, 0.1)
             torch.cuda.synchronize()
-            launches = (bn.batch_norm_train_fwd.launches, bn.batch_norm_train_bwd.launches)
+            launches = tuple(read_counts(counters).values())
             again = batch_norm_run(bn.batch_norm_train, x, dy, params, 0.1)
             want = batch_norm_run(bn.batch_norm_train_plain, x, dy, params, 0.1)
             exact = batch_norm_exact(x, dy, params, 0.1)
@@ -3529,10 +3488,10 @@ def batch_norm_graph_phase():
             batch = {k: v.cuda() for k, v in flagship_batch(32, seed=90).items()}
             traced, host, losses = [], [], []
             for fn in (lambda: fns[0](states[0], batch), lambda: eager(fns[1], states[1], batch)):
-                bn.batch_norm_train_fwd.launches = bn.batch_norm_train_bwd.launches = 0
+                counters = reset_counts(BATCH_NORM_KERNELS)
                 losses.append(on_card(fn)[0]['loss'])
                 traced.append(dict(BATCH_NORM_RAN))
-                host.append((bn.batch_norm_train_fwd.launches, bn.batch_norm_train_bwd.launches))
+                host.append(tuple(read_counts(counters).values()))
             sd = [s.model.state_dict() for s in states]
             differ = [k for k in sd[0] if not torch.equal(sd[0][k], sd[1][k])]
             # the kernels ran iff the states stay bit-equal and the eager step
@@ -3596,7 +3555,6 @@ def main():
     by_path.update(cli_phase(model, ckpt))
     by_path.update(tensor_parallel_phase(model, [(1, 1, 'nccl', False), (1, 2, 'gloo', False)]))
     by_path.update(soak_phase())
-    by_path.update(bench_phase())
     for k in kernels:
         # launches: the float32 train path's, which runs both kernels
         k['launches'] = by_path['train'][k['name']]

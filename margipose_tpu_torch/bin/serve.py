@@ -256,7 +256,7 @@ def make_runner(ckpt_path: str, precision: str, device='cuda'):
 
 def model_runner(model, input_specs, precision: str, device):
     """``make_runner``'s forward of a model already on ``device`` (the
-    bench's serving segment runs it on a model made from a seed)."""
+    benchmark's serve cell runs it on a model made from a seed)."""
     compute_dtype = resolve_dtype(precision)
     if compute_dtype in (None, torch.float32):
         set_float32_parity_mode()

@@ -51,7 +51,7 @@ def _install(record_dir, watch):
 
     sys.addaudithook(audit)
 
-    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
+    from margipose_tpu_torch.ops import launch_counts
     from margipose_tpu_torch.train import steps
 
     make_train_step = steps.make_train_step
@@ -73,7 +73,7 @@ def _install(record_dir, watch):
                 props = torch.cuda.get_device_properties(device)
                 bus = str(getattr(props, 'pci_bus_id', None) or getattr(props, 'uuid', ''))
             emit(step=state.step, digest=digest.hexdigest(), device=str(device), card=bus,
-                 launches=[dsnt_jsd_fwd.launches, dsnt_jsd_bwd.launches])
+                 launches=list(launch_counts('dsnt_jsd_fwd', 'dsnt_jsd_bwd').values()))
             return metrics
 
         return probed

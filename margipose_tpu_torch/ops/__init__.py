@@ -1,3 +1,4 @@
+from margipose_tpu_torch.ops._build import launch_counts, zero_launch_counts
 from margipose_tpu_torch.ops.dsnt import (
     average_loss,
     coord_expectation,
@@ -36,6 +37,8 @@ __all__ = [
     "flat_softmax",
     "js_reg_losses",
     "kl_reg_losses",
+    "launch_counts",
     "make_gauss",
     "normalized_linspace",
+    "zero_launch_counts",
 ]

@@ -10,11 +10,20 @@ source is rebuilt, and a library built by another compiler or on another
 machine (a ``build/`` copied along with a checkout) is never loaded. Nothing
 is built or loaded when this module is imported: the CPU tests import every
 module.
+
+``KERNELS`` declares every C entry point of the hand-written kernels, by
+symbol (``Kernel``): its library, its arguments and the names its kernels
+run under in a device trace. Calling one launches it and counts the launch;
+``launch_counts`` and ``zero_launch_counts`` read and zero the counts. A
+tensor takes a kernel where ``takes_kernel`` says so, on a CUDA device;
+everywhere else the wrapper runs its plain version, and on CUDA there is no
+fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -23,6 +32,8 @@ import shutil
 import subprocess
 import threading
 from os import path
+
+import torch
 
 _PKG = path.dirname(path.dirname(path.abspath(__file__)))
 CSRC = path.join(_PKG, "csrc")
@@ -131,3 +142,74 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
+
+
+def takes_kernel(device: torch.device) -> bool:
+    """Whether a tensor on ``device`` takes the hand-written kernel (CUDA)
+    rather than the plain version (every other device)."""
+    return device.type == "cuda"
+
+
+@dataclasses.dataclass(eq=False)
+class Kernel:
+    """One C entry point of ``csrc/<library>.cu``: ``symbol(*argtypes,
+    stream)`` returns a CUDA error code, and launches kernels that a device
+    trace names with one of ``traced`` once a launch. ``launches`` counts the
+    host launches that returned 0 since the last ``zero_launch_counts``."""
+
+    library: str
+    symbol: str
+    argtypes: tuple
+    traced: tuple[str, ...]
+    launches: int = 0
+    _fn: object = dataclasses.field(default=None, repr=False)
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raises on a non-zero
+        return, without counting it."""
+        if self._fn is None:  # bound at first use: importing builds nothing
+            fn = getattr(load(self.library), self.symbol)
+            fn.argtypes, fn.restype = [*self.argtypes, ctypes.c_void_p], ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):  # the tensors' card, not the current one
+            err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64S = ctypes.POINTER(ctypes.c_uint64)  # a launch's G groups' pointers
+
+KERNELS = {k.symbol: k for k in (
+    Kernel("dsnt_jsd", "dsnt_jsd_fwd", (_U64S, _U64S, _I, _P, _I, _I, _I, _F, _F),
+           ("dsnt_jsd_fwd_kernel",)),
+    Kernel("dsnt_jsd", "dsnt_jsd_bwd", (_U64S, _U64S, _I, _P, _P, _I, _I, _I, _F, _F),
+           ("dsnt_jsd_bwd_kernel",)),
+    Kernel("dsnt_jsd", "dsnt_jsd_log_check", (_P,), ("log_normal_check_kernel",)),
+    Kernel("softargmax3d", "softargmax3d_fwd", (_P, _I, _I, _I, _I, _I, _P, _P),
+           ("softargmax3d_fwd_kernel",)),
+    Kernel("softargmax3d", "softargmax3d_bwd", (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I),
+           ("softargmax3d_bwd_kernel",)),
+    # a split path's partial kernel runs beside its apply kernel: the apply
+    # kernel counts the launch
+    Kernel("batch_norm", "batch_norm_train_fwd",
+           (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P),
+           ("batch_norm_train_fwd_kernel", "batch_norm_train_fwd_apply_kernel")),
+    Kernel("batch_norm", "batch_norm_train_bwd",
+           (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+           ("batch_norm_train_bwd_kernel", "batch_norm_train_bwd_apply_kernel")),
+)}
+
+
+def launch_counts(*symbols: str) -> dict[str, int]:
+    """Host launches of the named entry points (every one where none is
+    named) since they were last zeroed."""
+    return {s: KERNELS[s].launches for s in symbols or KERNELS}
+
+
+def zero_launch_counts(*symbols: str) -> None:
+    """Zero the named entry points' launch counts (every one where none is
+    named)."""
+    for s in symbols or KERNELS:
+        KERNELS[s].launches = 0

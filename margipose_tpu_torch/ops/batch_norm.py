@@ -22,15 +22,11 @@ chunks (see the source's notes).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from margipose_tpu_torch.ops import _build
 
-KERNEL = "batch_norm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                 # kThreads in csrc/batch_norm.cu
 MAX_CLUSTER = 8               # kMaxCluster: the portable cluster size
@@ -114,18 +110,6 @@ def plan(channels: int, count: int, width: int, tensors: int, per: int = None):
     return 'split', -(-vectors * per * width // CHUNK_BYTES)
 
 
-@functools.cache
-def _lib():
-    lib = _build.load(KERNEL)
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.batch_norm_train_fwd.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-                                         ptr, ptr, f32, f32, ptr, ptr, ptr, ptr, ptr]
-    lib.batch_norm_train_bwd.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
-                                         ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.batch_norm_train_fwd.restype = lib.batch_norm_train_bwd.restype = ctypes.c_int
-    return lib
-
-
 def check_input(x: torch.Tensor) -> tuple[int, int, int]:
     """(B, C, H * W) of an ``x`` the kernels take, wherever it lies; raises
     otherwise."""
@@ -192,16 +176,11 @@ def batch_norm_train_fwd(x, weight, bias, running_mean, running_var, num_batches
     work = torch.empty((c, parts, 3), dtype=torch.float32, device=x.device) if split else None
     if momentum is None:
         num_batches_tracked.add_(1)  # the kernel reads it: the cumulative average
-    with torch.cuda.device(x.device):  # launch on the tensors' card, not the current one
-        err = _lib().batch_norm_train_fwd(
-            x.data_ptr(), DTYPES[x.dtype], per > 1, b, c, plane, parts, int(split),
-            _ptr(weight), _ptr(bias), running_mean.data_ptr(), running_var.data_ptr(),
-            num_batches_tracked.data_ptr(), -1.0 if momentum is None else float(momentum),
-            float(eps), y.data_ptr(), save_mean.data_ptr(), save_invstd.data_ptr(), _ptr(work),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"batch_norm_train_fwd kernel launch failed: CUDA error {err}")
-    batch_norm_train_fwd.launches += 1
+    _build.KERNELS["batch_norm_train_fwd"](
+        x.device, x.data_ptr(), DTYPES[x.dtype], per > 1, b, c, plane, parts, int(split),
+        _ptr(weight), _ptr(bias), running_mean.data_ptr(), running_var.data_ptr(),
+        num_batches_tracked.data_ptr(), -1.0 if momentum is None else float(momentum),
+        float(eps), y.data_ptr(), save_mean.data_ptr(), save_invstd.data_ptr(), _ptr(work))
     return y, save_mean, save_invstd
 
 
@@ -225,15 +204,10 @@ def batch_norm_train_bwd(dy, x, weight, save_mean, save_invstd):
     kind, parts = plan(c, b * plane, x.element_size(), 2, per)
     split = kind == 'split'
     work = torch.empty((c, parts, 2), dtype=torch.float32, device=x.device) if split else None
-    with torch.cuda.device(x.device):
-        err = _lib().batch_norm_train_bwd(
-            x.data_ptr(), dy.data_ptr(), DTYPES[x.dtype], per > 1, b, c, plane, parts,
-            int(split), _ptr(weight), save_mean.data_ptr(), save_invstd.data_ptr(),
-            dx.data_ptr(), _ptr(dweight), _ptr(dbias), _ptr(work),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"batch_norm_train_bwd kernel launch failed: CUDA error {err}")
-    batch_norm_train_bwd.launches += 1
+    _build.KERNELS["batch_norm_train_bwd"](
+        x.device, x.data_ptr(), dy.data_ptr(), DTYPES[x.dtype], per > 1, b, c, plane, parts,
+        int(split), _ptr(weight), save_mean.data_ptr(), save_invstd.data_ptr(), dx.data_ptr(),
+        _ptr(dweight), _ptr(dbias), _ptr(work))
     return dx, dweight, dbias
 
 
@@ -273,12 +247,8 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, num_batches_tra
     Returns:
       y in x's dtype, (x - mean) / sqrt(var + eps) * weight + bias.
     """
-    if x.device.type != "cuda":
+    if not _build.takes_kernel(x.device):
         return batch_norm_train_plain(x, weight, bias, running_mean, running_var,
                                       num_batches_tracked, momentum, eps)
     return _BatchNormTrainCuda.apply(x, weight, bias, running_mean, running_var,
                                      num_batches_tracked, momentum, eps)
-
-
-batch_norm_train_fwd.launches = 0  # forward launches (a split path's two count once)
-batch_norm_train_bwd.launches = 0  # backward launches (a split path's two count once)

@@ -6,16 +6,16 @@ with their targets. On CUDA tensors it launches the hand-written forward
 kernel in ``csrc/dsnt_jsd.cu`` once for all G groups (``dsnt_jsd_fwd``), and
 its gradient launches the backward kernel of the same file once
 (``dsnt_jsd_bwd``). ``dsnt_jsd_fused`` is the one-group call, with the JAX
-function's signature. On CPU tensors the head runs ``dsnt_jsd_plain`` and
-autograd differentiates its torch ops; ``dsnt_jsd_fwd_plain`` and
-``dsnt_jsd_bwd_plain`` are the kernels' plain versions. There is no fallback
-on CUDA: a tensor a kernel does not take raises.
+function's signature. On other tensors (``_build.takes_kernel``) the head
+runs ``dsnt_jsd_plain`` and autograd differentiates its torch ops;
+``dsnt_jsd_fwd_plain`` and ``dsnt_jsd_bwd_plain`` are the kernels' plain
+versions. There is no fallback on CUDA: a tensor a kernel does not take
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from collections.abc import Sequence
 
 import torch
@@ -30,7 +30,6 @@ from margipose_tpu_torch.ops.dsnt import (
     normalized_linspace,
 )
 
-KERNEL = "dsnt_jsd"
 MAX_GROUPS = 32  # kMaxGroups in csrc/dsnt_jsd.cu: the pointers a launch's parameters hold
 
 
@@ -73,22 +72,6 @@ def dsnt_jsd_bwd_plain(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Ten
     ``mu`` cotangent: the targets are constants."""
     return torch.stack([_vjp_plain(hm, mu, g, sigma)
                         for hm, mu, g in zip(heatmaps, mus, grad, strict=True)])
-
-
-@functools.cache
-def _lib():
-    lib = _build.load(KERNEL)
-    ptrs = ctypes.POINTER(ctypes.c_uint64)
-    lib.dsnt_jsd_fwd.argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.dsnt_jsd_bwd.argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.dsnt_jsd_log_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.dsnt_jsd_fwd.restype = lib.dsnt_jsd_bwd.restype = ctypes.c_int
-    lib.dsnt_jsd_log_check.restype = ctypes.c_int
-    return lib
 
 
 def _check_groups(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor]) -> None:
@@ -135,18 +118,13 @@ def dsnt_jsd_fwd(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
     stream."""
     _check_groups(heatmaps, mus)
     hm0 = heatmaps[0]
-    if hm0.device.type == "cpu":
+    if not _build.takes_kernel(hm0.device):
         return dsnt_jsd_fwd_plain(heatmaps, mus, sigma)
     p_ptrs, mu_ptrs = _pointers(heatmaps, mus)
     g, (b, j, h, w) = len(heatmaps), hm0.shape
     out = torch.empty((g, b * j, 4), dtype=torch.float32, device=hm0.device)
-    with torch.cuda.device(hm0.device):  # launch on the tensors' card, not the current one
-        err = _lib().dsnt_jsd_fwd(p_ptrs, mu_ptrs, g, out.data_ptr(), b * j, h, w,
-                                  gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma),
-                                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dsnt_jsd_fwd kernel launch failed: CUDA error {err}")
-    dsnt_jsd_fwd.launches += 1
+    _build.KERNELS["dsnt_jsd_fwd"](hm0.device, p_ptrs, mu_ptrs, g, out.data_ptr(), b * j, h, w,
+                                   gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma))
     return out
 
 
@@ -157,7 +135,7 @@ def dsnt_jsd_bwd(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
     CUDA tensors one launch of the backward kernel on the current stream."""
     _check_groups(heatmaps, mus)
     hm0 = heatmaps[0]
-    if hm0.device.type == "cpu":
+    if not _build.takes_kernel(hm0.device):
         return dsnt_jsd_bwd_plain(heatmaps, mus, grad, sigma)
     p_ptrs, mu_ptrs = _pointers(heatmaps, mus)
     g, (b, j, h, w) = len(heatmaps), hm0.shape
@@ -166,13 +144,9 @@ def dsnt_jsd_bwd(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tensor],
         raise ValueError(f"dsnt_jsd_bwd: grad is {tuple(grad.shape)} on {grad.device}, "
                          f"expected {(g, b * j, 4)} on {hm0.device}")
     dp = torch.empty((g, b, j, h, w), dtype=torch.float32, device=hm0.device)
-    with torch.cuda.device(hm0.device):
-        err = _lib().dsnt_jsd_bwd(p_ptrs, mu_ptrs, g, grad.data_ptr(), dp.data_ptr(), b * j, h,
-                                  w, gauss_axis_coeff(w, sigma), gauss_axis_coeff(h, sigma),
-                                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dsnt_jsd_bwd kernel launch failed: CUDA error {err}")
-    dsnt_jsd_bwd.launches += 1
+    _build.KERNELS["dsnt_jsd_bwd"](hm0.device, p_ptrs, mu_ptrs, g, grad.data_ptr(), dp.data_ptr(),
+                                   b * j, h, w, gauss_axis_coeff(w, sigma),
+                                   gauss_axis_coeff(h, sigma))
     return dp
 
 
@@ -182,10 +156,7 @@ def log_normal_mismatches(device: torch.device | str = "cuda") -> int:
     bit, counted on the card over all 2^32 bit patterns: 0 when the kernels'
     logs are ``logf``'s."""
     count = torch.zeros(1, dtype=torch.int32, device=device)
-    with torch.cuda.device(count.device):
-        err = _lib().dsnt_jsd_log_check(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dsnt_jsd_log_check kernel launch failed: CUDA error {err}")
+    _build.KERNELS["dsnt_jsd_log_check"](count.device, count.data_ptr())
     return int(count.item())
 
 
@@ -220,11 +191,8 @@ def dsnt_jsd_grouped(heatmaps: Sequence[torch.Tensor], mus: Sequence[torch.Tenso
       G pairs (coords [B, J, 2], jsd [B, J]), each equal to ``dsnt_jsd_plain``.
     """
     _check_groups(heatmaps, mus)
-    device = heatmaps[0].device
-    if device.type == "cpu":  # js_reg_losses detaches the targets
+    if not _build.takes_kernel(heatmaps[0].device):  # js_reg_losses detaches the targets
         return [dsnt_jsd_plain(hm, mu, sigma) for hm, mu in zip(heatmaps, mus)]
-    if device.type != "cuda":
-        raise ValueError(f"dsnt_jsd_grouped: unsupported device {device}")
     g, b, j = len(heatmaps), *heatmaps[0].shape[:2]
     rows = _DsntJsdCuda.apply([mu.detach() for mu in mus], float(sigma), *heatmaps)
     coords = rows[..., :2].reshape(g, b, j, 2).unbind(0)
@@ -244,7 +212,3 @@ def dsnt_jsd_fused(heatmaps: torch.Tensor, mu: torch.Tensor, sigma: float = 1.0)
       (coords [B, J, 2], jsd [B, J]), equal to ``dsnt_jsd_plain``.
     """
     return dsnt_jsd_grouped([heatmaps], [mu], sigma)[0]
-
-
-dsnt_jsd_fwd.launches = 0  # forward kernel launches since the last reset
-dsnt_jsd_bwd.launches = 0  # backward kernel launches since the last reset

@@ -9,8 +9,8 @@ grid of the port's other heads. On CUDA tensors it launches the hand-written
 forward kernel of ``csrc/softargmax3d.cu`` (``softargmax3d_fwd``), and its
 gradient the backward kernel of the same file (``softargmax3d_bwd``):
 float32 or bf16 logits, accumulated in float32, the gradient in the logits'
-dtype. On CPU tensors it runs ``softargmax3d_plain`` and autograd
-differentiates its torch ops;
+dtype. On other tensors (``_build.takes_kernel``) it runs
+``softargmax3d_plain`` and autograd differentiates its torch ops;
 ``softargmax3d_fwd_plain`` and ``softargmax3d_bwd_plain`` are the kernels'
 plain versions. There is no fallback on CUDA: a tensor the kernels do not
 take raises.
@@ -18,8 +18,6 @@ take raises.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -27,7 +25,6 @@ import torch
 from margipose_tpu_torch.ops import _build
 from margipose_tpu_torch.ops.dsnt import normalized_linspace
 
-KERNEL = "softargmax3d"
 VEC = 8  # kVec in csrc/softargmax3d.cu: a thread's elements at a time, consecutive along W
 MAX_ROWS = 65535  # a launch's grid rows
 LOG2E = math.log2(math.e)
@@ -92,16 +89,6 @@ def softargmax3d_bwd_plain(logits: torch.Tensor, depth: int, xyz: torch.Tensor,
     return (p * coeff).reshape(logits.shape).to(logits.dtype)
 
 
-@functools.cache
-def _lib():
-    lib = _build.load(KERNEL)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.softargmax3d_fwd.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr]
-    lib.softargmax3d_bwd.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.softargmax3d_fwd.restype = lib.softargmax3d_bwd.restype = ctypes.c_int
-    return lib
-
-
 def _check_cuda(logits: torch.Tensor, depth: int) -> tuple[int, int, int, int, int]:
     """``_shape`` of CUDA ``logits`` the kernels take; raises otherwise."""
     shape = _shape(logits, depth)
@@ -123,18 +110,13 @@ def softargmax3d_fwd(logits: torch.Tensor, depth: int):
     """(xyz [B, J, 3], stats [B * J, 2]), float32: ``softargmax3d_fwd_plain``
     on CPU tensors; on CUDA tensors one launch of the forward kernel on the
     current stream."""
-    if logits.device.type == "cpu":
+    if not _build.takes_kernel(logits.device):
         return softargmax3d_fwd_plain(logits, depth)
     b, j, d, h, w = _check_cuda(logits, depth)
     xyz = torch.empty((b, j, 3), dtype=torch.float32, device=logits.device)
     stats = torch.empty((b * j, 2), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):  # launch on the tensors' card, not the current one
-        err = _lib().softargmax3d_fwd(logits.data_ptr(), DTYPES[logits.dtype], b * j, d, h, w,
-                                      xyz.data_ptr(), stats.data_ptr(),
-                                      torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"softargmax3d_fwd kernel launch failed: CUDA error {err}")
-    softargmax3d_fwd.launches += 1
+    _build.KERNELS["softargmax3d_fwd"](logits.device, logits.data_ptr(), DTYPES[logits.dtype],
+                                       b * j, d, h, w, xyz.data_ptr(), stats.data_ptr())
     return xyz, stats
 
 
@@ -144,7 +126,7 @@ def softargmax3d_bwd(logits: torch.Tensor, depth: int, xyz: torch.Tensor, stats:
     ``xyz`` that ``softargmax3d_fwd`` wrote with ``stats``:
     ``softargmax3d_bwd_plain`` on CPU tensors; on CUDA tensors one launch of
     the backward kernel on the current stream."""
-    if logits.device.type == "cpu":
+    if not _build.takes_kernel(logits.device):
         return softargmax3d_bwd_plain(logits, depth, xyz, stats, grad)
     b, j, d, h, w = _check_cuda(logits, depth)
     grad = grad.float().contiguous()
@@ -156,13 +138,9 @@ def softargmax3d_bwd(logits: torch.Tensor, depth: int, xyz: torch.Tensor, stats:
                              f"{t.device}, expected contiguous float32 {shape} on "
                              f"{logits.device}")
     dlogits = torch.empty_like(logits, memory_format=torch.contiguous_format)
-    with torch.cuda.device(logits.device):
-        err = _lib().softargmax3d_bwd(logits.data_ptr(), DTYPES[logits.dtype], xyz.data_ptr(),
-                                      stats.data_ptr(), grad.data_ptr(), dlogits.data_ptr(),
-                                      b * j, d, h, w, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"softargmax3d_bwd kernel launch failed: CUDA error {err}")
-    softargmax3d_bwd.launches += 1
+    _build.KERNELS["softargmax3d_bwd"](logits.device, logits.data_ptr(), DTYPES[logits.dtype],
+                                       xyz.data_ptr(), stats.data_ptr(), grad.data_ptr(),
+                                       dlogits.data_ptr(), b * j, d, h, w)
     return dlogits
 
 
@@ -193,12 +171,7 @@ def softargmax3d(logits: torch.Tensor, depth: int) -> torch.Tensor:
       ``normalized_linspace`` gives along W, H and D, under a softmax over
       each joint's D * H * W logits.
     """
-    if logits.device.type == "cpu":
+    if not _build.takes_kernel(logits.device):
         return softargmax3d_plain(logits, depth)
-    if logits.device.type != "cuda":
-        raise ValueError(f"softargmax3d: unsupported device {logits.device}")
     return _SoftArgmax3dCuda.apply(logits, depth)
 
-
-softargmax3d_fwd.launches = 0  # forward kernel launches since the last reset
-softargmax3d_bwd.launches = 0  # backward kernel launches since the last reset

@@ -98,26 +98,24 @@ def _swap_then_pause(write_and_swap, ckpt_dir, payload, meta, marker):
 def run(words, device, eval_dataset, eval_batch_size, pause_in_save=None, marker=None):
     """Train on ``words``, then evaluate the live state; returns the record."""
     from margipose_tpu_torch.bin import eval_3d, train_3d
-    from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
+    from margipose_tpu_torch.ops import launch_counts, zero_launch_counts
     from margipose_tpu_torch.train.checkpoint import load_meta
 
-    kernels = {'dsnt_jsd_fwd': dsnt_jsd_fwd, 'dsnt_jsd_bwd': dsnt_jsd_bwd}
+    kernels = ('dsnt_jsd_fwd', 'dsnt_jsd_bwd')
     probe = _Probe(pause_in_save, marker)
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launch_counts(*kernels)
     t0 = time.perf_counter()
     try:
         result = train_3d.main(['--device', device, 'with', *words])
     finally:
         probe.undo()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = launch_counts(*kernels)
     ckpt_dir = os.path.join(_out_dir(words), result['experiment_id'], 'model-latest')
     model_desc = load_meta(ckpt_dir)['model_desc']  # the description, not the weights
     argv = ['--model', ckpt_dir, '--dataset', eval_dataset, '--batch-size',
             str(eval_batch_size), '--precision', 'float32', '--device', device]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launch_counts(*kernels)
     rows, stats = eval_3d.main(argv, model=(probe.state.model, model_desc))
     dev = torch.device(device)
     return {'device': str(dev),
@@ -129,7 +127,7 @@ def run(words, device, eval_dataset, eval_batch_size, pause_in_save=None, marker
             'eval': {'argv': argv, 'rows': {m: [float(v) for v in rows[m]]
                                             for m in eval_3d.METRICS},
                      'mean_loss': float(stats['mean_loss']),
-                     'launches': {name: fn.launches for name, fn in kernels.items()}}}
+                     'launches': launch_counts(*kernels)}}
 
 
 def _out_dir(words):

@@ -177,12 +177,6 @@ def test_the_wrapper_takes_nchw_float32_and_bf16(dtype):
     assert bn.check_input(torch.zeros(1, 3, 1, 2, dtype=dtype)) == (1, 3, 2)
 
 
-def test_a_cpu_tensor_is_not_launched():
-    with pytest.raises(ValueError, match='CUDA device'):
-        bn.batch_norm_train_fwd(torch.zeros(2, 3, 4, 4), None, None, torch.zeros(3),
-                                torch.ones(3), torch.zeros((), dtype=torch.long), 0.1, 1e-5)
-
-
 @pytest.mark.parametrize('name, tensor', [
     ('weight', torch.ones(3, dtype=torch.bfloat16)),
     ('weight', torch.ones(4)),

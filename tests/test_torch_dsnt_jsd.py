@@ -19,6 +19,7 @@ import torch
 from numpy.testing import assert_allclose
 
 from margipose_tpu.ops.pallas_dsnt import dsnt_jsd_fused as jax_dsnt_jsd_fused
+from margipose_tpu_torch.ops import launch_counts
 from margipose_tpu_torch.ops.dsnt_jsd import (
     MAX_GROUPS,
     dsnt_jsd_fused,
@@ -86,20 +87,6 @@ def test_grouped_matches_jax_pallas(b, j, h, w, sigma):
         assert coords.shape == (b, j, 2) and jsd.shape == (b, j)
         assert_allclose(coords.numpy(), np.asarray(exp_coords), atol=1e-5, err_msg=f'group {i}')
         assert_allclose(jsd.numpy(), np.asarray(exp_jsd), atol=1e-5, err_msg=f'group {i}')
-
-
-def test_forward_wrapper_takes_the_plain_rows_on_cpu():
-    ps, mus = _groups(3, 2, 5, 8, 12, seed=11)
-    hms, mus = [torch.from_numpy(p) for p in ps], [torch.from_numpy(m) for m in mus]
-    before = dsnt_jsd_fwd.launches
-    rows = dsnt_jsd_fwd(hms, mus, 1.5)
-    assert dsnt_jsd_fwd.launches == before  # no kernel on the CPU
-    assert rows.shape == (3, 10, 4) and torch.equal(rows, dsnt_jsd_fwd_plain(hms, mus, 1.5))
-    for row, hm, mu in zip(rows, hms, mus):
-        coords, jsd = dsnt_jsd_plain(hm, mu, 1.5)
-        assert torch.equal(row[:, :2], coords.reshape(-1, 2))
-        assert torch.equal(row[:, 2], jsd.reshape(-1))
-        assert torch.equal(row[:, 3], torch.zeros(10))
 
 
 def test_grouped_raises_on_groups_it_does_not_take():
@@ -204,10 +191,10 @@ def test_cuda_kernel_matches_plain():
     for b, j, h, w, sigma in [(32, 17, 32, 32, 1.0), (1, 13, 16, 24, 2.0), (1, 5, 5, 7, 1.5)]:
         _, p, mu = _heatmaps(b, j, h, w, seed=b + j)
         p_c, mu_c = torch.from_numpy(p).cuda(), torch.from_numpy(mu).cuda()
-        before = dsnt_jsd_fwd.launches
+        before = launch_counts()['dsnt_jsd_fwd']
         coords, jsd = dsnt_jsd_fused(p_c, mu_c, sigma)
         torch.cuda.synchronize()
-        assert dsnt_jsd_fwd.launches == before + 1
+        assert launch_counts()['dsnt_jsd_fwd'] == before + 1
         exp_coords, exp_jsd = dsnt_jsd_plain(p_c, mu_c, sigma)
         assert_allclose(coords.cpu().numpy(), exp_coords.cpu().numpy(), atol=1e-5)
         assert_allclose(jsd.cpu().numpy(), exp_jsd.cpu().numpy(), atol=1e-5)
@@ -241,10 +228,10 @@ def test_cuda_grouped_kernel_matches_plain(g, b, j, h, w, sigma, offset, spoil):
         hms[0][0, 1, 3, 5] = 2.5
         hms[1][1, 2, 30, 0] = -0.25
     mus = [torch.from_numpy(mu).cuda() for mu in mus]
-    before = dsnt_jsd_fwd.launches
+    before = launch_counts()['dsnt_jsd_fwd']
     rows = dsnt_jsd_fwd(hms, mus, sigma)
     torch.cuda.synchronize()
-    assert dsnt_jsd_fwd.launches == before + 1
+    assert launch_counts()['dsnt_jsd_fwd'] == before + 1
     expected = dsnt_jsd_fwd_plain(hms, mus, sigma).cpu().numpy()
     assert_allclose(rows.cpu().numpy(), expected, atol=1e-5)  # NaN where the plain has NaN
     assert np.isnan(expected).any() == spoil
@@ -292,10 +279,10 @@ def test_cuda_grouped_kernel_with_targets_off_the_map():
     ps, mus = _off_map_groups(12, 32, 17, seed=41)
     hms = [torch.from_numpy(p).cuda() for p in ps]
     mus = [torch.from_numpy(mu).cuda() for mu in mus]
-    before = dsnt_jsd_fwd.launches
+    before = launch_counts()['dsnt_jsd_fwd']
     rows = dsnt_jsd_fwd(hms, mus, 1.0)
     torch.cuda.synchronize()
-    assert dsnt_jsd_fwd.launches == before + 1
+    assert launch_counts()['dsnt_jsd_fwd'] == before + 1
     rows = rows.cpu().numpy()
     assert np.isfinite(rows).all()
     assert_allclose(rows, dsnt_jsd_fwd_plain(hms, mus, 1.0).cpu().numpy(), atol=1e-5)

@@ -22,6 +22,7 @@ import torch
 from numpy.testing import assert_allclose
 
 from margipose_tpu.ops.pallas_dsnt import dsnt_jsd_fused as jax_dsnt_jsd_fused
+from margipose_tpu_torch.ops import launch_counts
 from margipose_tpu_torch.ops.dsnt_jsd import (
     dsnt_jsd_bwd,
     dsnt_jsd_bwd_plain,
@@ -67,9 +68,9 @@ def test_plain_backward_matches_jax_vjp(b, j, h, w, sigma):
     assert got.shape == (1, b, j, h, w)
     assert_allclose(got[0].numpy(), expected, atol=1e-4)
     # the wrapper takes the plain version for a CPU tensor, and counts no launch
-    before = dsnt_jsd_bwd.launches
+    before = launch_counts()['dsnt_jsd_bwd']
     wrapped = dsnt_jsd_bwd(*args)
-    assert dsnt_jsd_bwd.launches == before
+    assert launch_counts()['dsnt_jsd_bwd'] == before
     assert torch.equal(wrapped, got)
 
 
@@ -175,10 +176,10 @@ def test_cuda_backward_matches_plain():
         logits, p, mu, grad = _inputs(b, j, h, w, seed=b + j)
         p_c, mu_c, g_c = (torch.from_numpy(a).cuda() for a in (p, mu, grad))
         args = ([p_c], [mu_c], g_c[None], sigma)
-        before = dsnt_jsd_bwd.launches
+        before = launch_counts()['dsnt_jsd_bwd']
         dp = dsnt_jsd_bwd(*args)
         torch.cuda.synchronize()
-        assert dsnt_jsd_bwd.launches == before + 1
+        assert launch_counts()['dsnt_jsd_bwd'] == before + 1
         assert_allclose(dp.cpu().numpy(), dsnt_jsd_bwd_plain(*args).cpu().numpy(), atol=1e-5)
         grads = []
         for head in (dsnt_jsd_fused, dsnt_jsd_plain):
@@ -212,10 +213,10 @@ def test_cuda_grouped_backward_matches_plain(g, b, j, h, w, sigma, spoil):
     if spoil:  # one row with a value of 2.5, one with a negative value (NaN logs)
         ps[0][0, 1, 3, 5] = 2.5
         ps[1][1, 2, 30, 0] = -0.25
-    before = dsnt_jsd_bwd.launches
+    before = launch_counts()['dsnt_jsd_bwd']
     dp = dsnt_jsd_bwd(ps, mus, grad, sigma)
     torch.cuda.synchronize()
-    assert dsnt_jsd_bwd.launches == before + 1
+    assert launch_counts()['dsnt_jsd_bwd'] == before + 1
     expected = dsnt_jsd_bwd_plain(ps, mus, grad, sigma).cpu().numpy()
     assert_allclose(dp.cpu().numpy(), expected, atol=1e-5)  # NaN where the plain has NaN
     assert np.isnan(expected).any() == spoil
@@ -273,10 +274,10 @@ def test_cuda_grouped_backward_on_mixed_recipe_rows():
     ps = [torch.from_numpy(x[1]).cuda() for x in groups]
     mus = [torch.from_numpy(mu).cuda() for mu in mus]
     grad = torch.from_numpy(grad).cuda()
-    before = dsnt_jsd_bwd.launches
+    before = launch_counts()['dsnt_jsd_bwd']
     dp = dsnt_jsd_bwd(ps, mus, grad, 1.0)
     torch.cuda.synchronize()
-    assert dsnt_jsd_bwd.launches == before + 1
+    assert launch_counts()['dsnt_jsd_bwd'] == before + 1
     dp = dp.cpu().numpy()
     assert np.isfinite(dp).all()
     assert_allclose(dp, dsnt_jsd_bwd_plain(ps, mus, grad, 1.0).cpu().numpy(), atol=1e-5)

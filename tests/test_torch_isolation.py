@@ -45,7 +45,7 @@ def test_importing_every_port_module_loads_no_jax():
                  'data.h36m', 'data.mpii', 'data.fakes', 'data.mpi3d_preprocess',
                  'parallel.mesh', 'cli', 'bin', 'bin.__main__', 'bin.hyperparam_search',
                  'bin.export_model', 'bin.run_gui', 'bin.calc_dataloader_stats',
-                 'bin.bench_loader', 'bench'):
+                 'bin.bench_loader'):
         assert f'margipose_tpu_torch.{name}' in modules
     code = (
         'import importlib, sys\n'
@@ -108,32 +108,3 @@ def test_infer_and_serve_default_to_cuda_and_raise_without_a_card(monkeypatch):
         serve.create_server('missing.pth', warmup=False)
     with pytest.raises(RuntimeError, match='is_available'):
         serve.main(['--model', 'missing.pth', '--port', '0'])
-
-
-def test_the_bench_loads_no_jax():
-    """``margipose_tpu_torch.bench`` and what it imports when it counts the
-    flagship's FLOPs load neither JAX nor the JAX package; the reference it
-    compares with runs in a child process of its own."""
-    code = (
-        'import sys\n'
-        'from margipose_tpu_torch import bench\n'
-        'from margipose_tpu_torch.models import Default_MargiPose_Desc\n'
-        'assert bench.flops_per_image(Default_MargiPose_Desc) > 5e10\n'
-        f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
-        'print(sorted(bad))\n'
-    )
-    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300,
-                         env={**os.environ, 'PYTHONPATH': ROOT, 'OMP_NUM_THREADS': '1'})
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == '[]'
-
-
-def test_the_bench_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
-    from margipose_tpu_torch import bench
-
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(RuntimeError, match='is_available'):
-        bench.main([])
-    with pytest.raises(RuntimeError, match='is_available'):
-        bench.run_bench()

@@ -18,7 +18,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from margipose_tpu_torch.models import create_model
-from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_bwd, dsnt_jsd_fwd
+from margipose_tpu_torch.ops import launch_counts, zero_launch_counts
 from margipose_tpu_torch.train.schedules import make_optimiser
 from margipose_tpu_torch.train import steps
 from margipose_tpu_torch.train.steps import TrainState, make_train_step, step_counts
@@ -164,9 +164,9 @@ def test_a_replay_runs_both_loss_head_kernels_with_no_host_launch(card):
     counts = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for seed in range(5):
-            before = dsnt_jsd_fwd.launches, dsnt_jsd_bwd.launches
+            zero_launch_counts()
             step(state, _batch(seed, card))
-            counts.append((dsnt_jsd_fwd.launches - before[0], dsnt_jsd_bwd.launches - before[1]))
+            counts.append(tuple(launch_counts('dsnt_jsd_fwd', 'dsnt_jsd_bwd').values()))
         torch.cuda.synchronize()
     assert counts == [(1, 1), (1, 1), (0, 0), (0, 0), (0, 0)]
     assert step_counts(step) == {'eager_steps': 1, 'captures': 1, 'replays': 3}

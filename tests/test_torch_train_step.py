@@ -23,6 +23,13 @@ Tolerances, all float32 on the CPU with sums in another order:
                         update is 1e-4;
   running mean and var  rtol 1e-4, atol 1e-5. Torch's unbiased variance would
                         be off by 0.3% of the batch term at n = 32.
+
+The port's forward (``make_forward_fn``) is held to the JAX package's
+``make_forward_fn`` on the same numpy inputs: a JAX MargiPose (inceptionv4, 2
+stages, 64 px, BN statistics randomised) exported into the port, batch 2,
+float32, ``atol=1e-5`` on the coordinates (float32 summation order; the
+coordinates lie in [-1, 1]). A (1, 1) mesh of one process gives what no mesh
+gives; a mesh with a 'model' axis over 1 refuses an unsharded model.
 """
 
 import jax
@@ -35,11 +42,18 @@ from numpy.testing import assert_allclose
 import margipose_tpu.train.steps as jax_steps
 from margipose_tpu.models.margipose import margipose_masked_loss as jax_masked_loss
 from margipose_tpu.train.schedules import make_optimiser as jax_make_optimiser
+from margipose_tpu.train.steps import make_forward_fn as jax_make_forward_fn
 from margipose_tpu_torch.models import create_model
 from margipose_tpu_torch.models.layers import BatchNorm2d
+from margipose_tpu_torch.parallel.mesh import Mesh, make_mesh
 from margipose_tpu_torch.train import steps
 from margipose_tpu_torch.train.schedules import make_optimiser
-from margipose_tpu_torch.train.steps import TrainState, make_eval_step, make_train_step
+from margipose_tpu_torch.train.steps import (
+    TrainState,
+    make_eval_step,
+    make_forward_fn,
+    make_train_step,
+)
 from margipose_tpu_torch.weights import state_dict_from_jax
 from test_torch_weights import jax_margipose, small_desc
 
@@ -258,6 +272,35 @@ def test_a_cpu_step_runs_eagerly_and_returns_fresh_tensors():
     ptrs = [o[k].data_ptr() for o in outs for k in ('loss', 'pred')]
     assert len(set(ptrs)) == len(ptrs)
     assert len({float(o['loss']) for o in outs}) == 3
+
+
+@pytest.fixture(scope='module')
+def pair():
+    desc = small_desc()
+    jax_model, variables = jax_margipose(desc, seed=0)
+    model = create_model(desc)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    x = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
+    want = np.asarray(jax_make_forward_fn(jax_model)(variables, x))
+    return model, x, want
+
+
+@pytest.mark.parametrize('mesh', [None, (1, 1)], ids=['no mesh', '(1, 1) mesh'])
+def test_forward_matches_jax(pair, mesh):
+    model, x, want = pair
+    model.train()  # the forward puts it in eval mode
+    forward = make_forward_fn(model, compute_dtype='float32',
+                              mesh=None if mesh is None else make_mesh(mesh))
+    xyz = forward(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    assert xyz.dtype == torch.float32 and xyz.shape == want.shape == (2, 17, 3)
+    assert not xyz.requires_grad and not model.training
+    assert_allclose(xyz.numpy(), want, atol=1e-5)
+
+
+def test_forward_on_a_model_axis_needs_the_sharded_model(pair):
+    hybrid = Mesh(shape={'data': 1, 'model': 2}, coords={'data': 0, 'model': 0})
+    with pytest.raises(ValueError, match='shard_variables'):
+        make_forward_fn(pair[0], mesh=hybrid)
 
 
 @pytest.mark.slow
