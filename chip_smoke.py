@@ -599,16 +599,21 @@ def sweep_phase(reports):
 # Chatterbox), the integral model's soft-argmax and train-mode batch norm
 LOSS_HEAD_KERNELS = ('dsnt_jsd_fwd', 'dsnt_jsd_bwd')
 SOFTARGMAX3D_KERNELS = ('softargmax3d_fwd', 'softargmax3d_bwd')
-BATCH_NORM_KERNELS = ('batch_norm_train_fwd', 'batch_norm_train_bwd')
+BATCH_NORM_KERNELS = ('batch_norm_train_fwd', 'batch_norm_train_bwd',
+                      'batch_norm_train_nhwc_fwd', 'batch_norm_train_nhwc_bwd')
 
 
 # the train-mode batch-norm kernels by the names a device trace gives them:
-# the port's, once a batch norm each way, and ATen's, which the port no
-# longer runs
+# the port's NCHW pair (float32 steps) and channels-last pair (the bf16 step
+# on one card), once a batch norm each way, ATen's, which the port no longer
+# runs, and cuDNN's layout transposes, which a channels-last step runs none of
 BATCH_NORM_WORDS = {
     'fwd': KERNELS['batch_norm_train_fwd'].traced,
     'bwd': KERNELS['batch_norm_train_bwd'].traced,
+    'nhwc_fwd': KERNELS['batch_norm_train_nhwc_fwd'].traced,
+    'nhwc_bwd': KERNELS['batch_norm_train_nhwc_bwd'].traced,
     'aten': ('batch_norm_collect_statistics', 'batch_norm_backward'),
+    'transpose': ('nchwToNhwc', 'nhwcToNchw'),
 }
 BATCH_NORM_RAN = {}  # the batch-norm kernels of on_card's last trace, by BATCH_NORM_WORDS
 
@@ -658,14 +663,29 @@ def batch_norm_layers(state_dict):
     return sum(k.endswith('num_batches_tracked') for k in state_dict)
 
 
-def check_batch_norm_ran(name, layers, steps):
+def batch_norm_expected(layers, steps, channels_last):
+    """The kernels of BATCH_NORM_WORDS a path runs: each of ``layers`` batch
+    norms once each way in each of ``steps`` train steps, through the
+    channels-last pair where the step runs channels-last (bf16 on one card)
+    and the NCHW pair elsewhere; never ATen's. cuDNN's transposes are
+    reported, not held: its timed search (the bins' policy) may pick an
+    algorithm that transposes a small convolution of a channels-last step."""
+    n = layers * steps
+    pair = dict.fromkeys(('nhwc_fwd', 'nhwc_bwd') if channels_last else ('fwd', 'bwd'), n)
+    return {'fwd': 0, 'bwd': 0, 'nhwc_fwd': 0, 'nhwc_bwd': 0, **pair, 'aten': 0}
+
+
+def check_batch_norm_ran(name, layers, steps, channels_last):
     """On on_card's last trace: each of ``layers`` batch norms ran the
-    port's forward and backward kernels once in each of ``steps`` train
-    steps, and no ATen train-mode batch-norm kernel ran."""
-    want = {'fwd': layers * steps, 'bwd': layers * steps, 'aten': 0}
+    port's forward and backward kernels for the step's layout once in each
+    of ``steps`` train steps, and no ATen train-mode batch-norm kernel
+    ran."""
+    want = batch_norm_expected(layers, steps, channels_last)
+    ran = {k: v for k, v in BATCH_NORM_RAN.items() if k != 'transpose'}
     phase(name, f'train-mode batch norm on the card {dict(BATCH_NORM_RAN)}, expected {want} '
-                f'({layers} batch norms x {steps} steps)')
-    if BATCH_NORM_RAN != want:
+                f'({layers} batch norms x {steps} steps, '
+                f'{"channels-last" if channels_last else "NCHW"})')
+    if ran != want:
         raise AssertionError(f'{name}: batch-norm kernels ran {dict(BATCH_NORM_RAN)}, '
                              f'expected {want}')
 
@@ -957,7 +977,7 @@ def train_path_phase():
 
     ckpt_dir = os.path.join(out_dir, 'flagship', 'model-latest')
     saved = checkpoint.load_payload(ckpt_dir)['model']
-    check_batch_norm_ran('train', batch_norm_layers(saved), steps)
+    check_batch_norm_ran('train', batch_norm_layers(saved), steps, channels_last=False)
     initial = create_model(Default_MargiPose_Desc,
                            generator=torch.Generator().manual_seed(seed)).state_dict()
     weights = [k for k in initial if k.endswith('weight')]
@@ -1314,7 +1334,8 @@ def bf16_train_phase():
                              f'{result["step"]} steps, expected {expected} and '
                              f'{expected_host} in {steps}')
     payload = checkpoint.load_payload(os.path.join(out_dir, 'flagship', 'model-latest'))
-    check_batch_norm_ran('bf16 train', batch_norm_layers(payload['model']), steps)
+    check_batch_norm_ran('bf16 train', batch_norm_layers(payload['model']), steps,
+                         channels_last=True)
     dtypes = {v.dtype for k, v in payload['model'].items() if not k.endswith('num_batches_tracked')}
     dtypes |= {buf.dtype for st in payload['optimiser']['optimiser']['state'].values()
                for buf in st.values() if torch.is_tensor(buf)}
@@ -1618,7 +1639,7 @@ def train_bin_phase(name, words, steps, experiment_id):
                              f'steps, expected {expected} and {expected_host} in {steps}')
     ckpt_dir = os.path.join(out_dir, experiment_id, 'model-latest')
     check_batch_norm_ran(name, batch_norm_layers(checkpoint.load_payload(ckpt_dir)['model']),
-                         steps)
+                         steps, channels_last="precision='bfloat16'" in words)
     if not (math.isfinite(result['train_loss']) and math.isfinite(val_loss)):
         raise AssertionError(f'{name}: train loss {result["train_loss"]}, val loss {val_loss}')
     ms = [s * 1e3 for s in result['step_seconds']]
@@ -3152,8 +3173,9 @@ def integral_phase():
         raise AssertionError('integral train path: kernels, steps or loss off')
 
     ckpt_dir = os.path.join(out_dir, 'integral', 'model-latest')
-    check_batch_norm_ran('integral train',
-                         batch_norm_layers(checkpoint.load_payload(ckpt_dir)['model']), steps)
+    check_batch_norm_ran('integral train',  # the bin's precision on the card: bf16
+                         batch_norm_layers(checkpoint.load_payload(ckpt_dir)['model']), steps,
+                         channels_last=True)
     by_path = {}
     for precision in ('float32', 'bfloat16'):
         (rows, stats), host, ran = on_card(lambda: eval_3d.main(
@@ -3250,14 +3272,18 @@ BATCH_NORM_EPS = 1e-3      # BasicConv2d's; the other batch norms take 1e-5
 BATCH_NORM_STEPS = 4       # graphed against eager train steps at batch 32
 
 
-def batch_norm_inputs(b, c, h, w, offset, dtype, seed):
-    """x (mean about 0.5, std 2, ``offset`` values into its storage), the
-    cotangent dy, and float32 weight, bias, running mean and variance."""
+def batch_norm_inputs(b, c, h, w, offset, dtype, seed, channels_last=False):
+    """x (mean about 0.5, std 2, ``offset`` values into its storage; NCHW,
+    or channels-last), the cotangent dy in x's layout, and float32 weight,
+    bias, running mean and variance."""
     g = torch.Generator(device='cuda').manual_seed(seed)
     numel = b * c * h * w
-    x = torch.empty(numel + offset, dtype=dtype, device='cuda')[offset:].view(b, c, h, w)
+    storage = torch.empty(numel + offset, dtype=dtype, device='cuda')[offset:]
+    x = storage.view(b, h, w, c).permute(0, 3, 1, 2) if channels_last else storage.view(b, c, h, w)
     x.copy_(2 * torch.randn(b, c, h, w, generator=g, device='cuda') + 0.5)
     dy = torch.randn(b, c, h, w, generator=g, device='cuda').to(dtype)
+    if channels_last:
+        dy = dy.contiguous(memory_format=torch.channels_last)
     params = [torch.rand(c, generator=g, device='cuda') + 0.5,
               torch.randn(c, generator=g, device='cuda') * 0.1,
               torch.randn(c, generator=g, device='cuda') * 0.1,
@@ -3327,67 +3353,97 @@ def batch_norm_bytes(b, c, h, w, width, direction):
     return (2 * n * width + 8 * c * 4) if direction == 'fwd' else (3 * n * width + 5 * c * 4)
 
 
+def batch_norm_layouts():
+    """Phase 25's two layouts: (label, the wrapper, its forward and backward
+    entries, the entries' symbols, the values a thread access, the plan)."""
+    from margipose_tpu_torch.ops import batch_norm as bn
+
+    def plan(x, tensors, per):
+        b, c, h, w = x.shape
+        return bn.plan(c, b * h * w, x.element_size(), tensors, per)
+
+    def plan_nhwc(x, tensors, per):
+        b, c, h, w = x.shape
+        return bn.plan_nhwc(c, b * h * w, x.element_size(), tensors, per)
+
+    return [('NCHW', bn.batch_norm_train, bn.batch_norm_train_fwd, bn.batch_norm_train_bwd,
+             BATCH_NORM_KERNELS[:2], bn.vector_values, plan),
+            ('channels-last', bn.batch_norm_train_nhwc, bn.batch_norm_train_nhwc_fwd,
+             bn.batch_norm_train_nhwc_bwd, BATCH_NORM_KERNELS[2:], bn.vector_values_nhwc,
+             plan_nhwc)]
+
+
 def batch_norm_phase():
     """The train-mode batch-norm kernels (csrc/batch_norm.cu) on the card,
-    float32 and bf16, at the train cells' shapes and three single-value
-    layouts: y, dx, dw, db and the running statistics against the float64
-    computation from the same inputs within batch_norm_gaps' tolerances
-    (each excess at most 1), the plain version's (torch's batch norm and the
-    running-variance fix-up) gaps beside them, momentum None's cumulative
-    average, the launch plan, one host launch each way, and the same bits
-    on a second run. The first BATCH_NORM_TIMED shapes timed in a
-    CUDA graph against their bytes bound, beside the plain forward's eager
-    time and torch's own batch norm (F.batch_norm, and ATen's backward) in a
-    graph, which the port never calls on the card."""
+    the NCHW pair and the channels-last pair, float32 and bf16, at the train
+    cells' shapes and three single-value layouts: y, dx, dw, db and the
+    running statistics against the float64 computation from the same inputs
+    within batch_norm_gaps' tolerances (each excess at most 1), the plain
+    version's (torch's batch norm and the running-variance fix-up) gaps
+    beside them, momentum None's cumulative average, the launch plan, one
+    host launch each way, and the same bits on a second run. The first
+    BATCH_NORM_TIMED shapes timed in a CUDA graph against their bytes bound,
+    beside the plain forward's eager time and torch's own batch norm
+    (F.batch_norm, and ATen's backward, in the same layout) in a graph,
+    which the port never calls on the card."""
     from margipose_tpu_torch.ops import batch_norm as bn
 
     reports = []
-    for i, (b, c, h, w, offset) in enumerate(BATCH_NORM_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, dy, params = batch_norm_inputs(b, c, h, w, offset, dtype, seed=100 + i)
-            name = f'batch norm {b}x{c}x{h}x{w}{" +1" if offset else ""} {str(dtype)[6:]}'
-            width = x.element_size()
-            per = bn.vector_values(x)
-            plans = [bn.plan(c, b * h * w, width, t, per) for t in (1, 2)]
-            counters = reset_counts(BATCH_NORM_KERNELS)
-            got = batch_norm_run(bn.batch_norm_train, x, dy, params, 0.1)
-            torch.cuda.synchronize()
-            launches = tuple(read_counts(counters).values())
-            again = batch_norm_run(bn.batch_norm_train, x, dy, params, 0.1)
-            want = batch_norm_run(bn.batch_norm_train_plain, x, dy, params, 0.1)
-            exact = batch_norm_exact(x, dy, params, 0.1)
-            gaps = batch_norm_gaps(got, exact, dtype)
-            plain_gaps = batch_norm_gaps(want, exact, dtype)
-            same = all(torch.equal(got[k], again[k]) for k in got)
-            cumulative = batch_norm_run(bn.batch_norm_train, x, dy, params, None)
-            cumulative_want = batch_norm_run(bn.batch_norm_train_plain, x, dy, params, None)
-            cgaps = batch_norm_gaps(cumulative, batch_norm_exact(x, dy, params, None), dtype)
-            tracked = (int(got['tracked']), int(cumulative['tracked']),
-                       int(cumulative_want['tracked']))
-            worst = max(max(gaps.values()), cgaps['running_mean'], cgaps['running_var'])
-            apart = {k: float((got[k].double() - want[k].double()).abs().max())
-                     for k in ('y', 'dx', 'dw', 'db', 'running_mean', 'running_var')}
-            phase(name, f'plan fwd {plans[0]}, bwd {plans[1]}, {per} values a thread access; '
-                        f'launches {launches}; gap from float64 over tolerance: kernels '
-                        + ', '.join(f'{k} {v:.3g}' for k, v in gaps.items())
-                        + '; plain version '
-                        + ', '.join(f'{k} {v:.3g}' for k, v in plain_gaps.items())
-                        + f'; momentum None: running stats {cgaps["running_mean"]:.3g}, '
-                          f'{cgaps["running_var"]:.3g}; num_batches_tracked {tracked}; '
-                          f'second run bit-equal {same}; kernels vs plain, largest '
-                        + ', '.join(f'{k} {v:.3g}' for k, v in apart.items()))
-            if not (worst <= 1.0 and launches == (1, 1) and same and tracked == (1, 1, 1)):
-                raise AssertionError(f'{name}: the kernels left the float64 batch norm')
-            if i < BATCH_NORM_TIMED:
-                reports.append(batch_norm_times(name, x, dy, params, per, plans))
-            del x, dy, got, again, want, exact, cumulative, cumulative_want
-    torch.cuda.empty_cache()
+    for layout, train, fwd, bwd, symbols, vector_values, plan in batch_norm_layouts():
+        for i, (b, c, h, w, offset) in enumerate(BATCH_NORM_SHAPES):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dy, params = batch_norm_inputs(b, c, h, w, offset, dtype, seed=100 + i,
+                                                  channels_last=layout != 'NCHW')
+                name = (f'batch norm {layout} {b}x{c}x{h}x{w}{" +1" if offset else ""} '
+                        f'{str(dtype)[6:]}')
+                per = vector_values(x)
+                plans = [plan(x, t, per) for t in (1, 2)]
+                counters = reset_counts(symbols)
+                got = batch_norm_run(train, x, dy, params, 0.1)
+                torch.cuda.synchronize()
+                launches = tuple(read_counts(counters).values())
+                again = batch_norm_run(train, x, dy, params, 0.1)
+                # the plain version from an aligned copy: cuDNN's channels-last
+                # batch norm fails on x off 16-byte alignment
+                want = batch_norm_run(bn.batch_norm_train_plain, x.clone(), dy, params, 0.1)
+                exact = batch_norm_exact(x, dy, params, 0.1)
+                gaps = batch_norm_gaps(got, exact, dtype)
+                plain_gaps = batch_norm_gaps(want, exact, dtype)
+                same = all(torch.equal(got[k], again[k]) for k in got)
+                layout_kept = all(got[k].stride() == x.stride() for k in ('y', 'dx'))
+                cumulative = batch_norm_run(train, x, dy, params, None)
+                cumulative_want = batch_norm_run(bn.batch_norm_train_plain, x.clone(), dy, params,
+                                                 None)
+                cgaps = batch_norm_gaps(cumulative, batch_norm_exact(x, dy, params, None), dtype)
+                tracked = (int(got['tracked']), int(cumulative['tracked']),
+                           int(cumulative_want['tracked']))
+                worst = max(max(gaps.values()), cgaps['running_mean'], cgaps['running_var'])
+                apart = {k: float((got[k].double() - want[k].double()).abs().max())
+                         for k in ('y', 'dx', 'dw', 'db', 'running_mean', 'running_var')}
+                phase(name, f'plan fwd {plans[0]}, bwd {plans[1]}, {per} values a thread access; '
+                            f'launches {launches}; y and dx in x\'s layout {layout_kept}; gap '
+                            'from float64 over tolerance: kernels '
+                            + ', '.join(f'{k} {v:.3g}' for k, v in gaps.items())
+                            + '; plain version '
+                            + ', '.join(f'{k} {v:.3g}' for k, v in plain_gaps.items())
+                            + f'; momentum None: running stats {cgaps["running_mean"]:.3g}, '
+                              f'{cgaps["running_var"]:.3g}; num_batches_tracked {tracked}; '
+                              f'second run bit-equal {same}; kernels vs plain, largest '
+                            + ', '.join(f'{k} {v:.3g}' for k, v in apart.items()))
+                if not (worst <= 1.0 and launches == (1, 1) and same and layout_kept
+                        and tracked == (1, 1, 1)):
+                    raise AssertionError(f'{name}: the kernels left the float64 batch norm')
+                if i < BATCH_NORM_TIMED:
+                    reports.append(batch_norm_times(name, layout, fwd, bwd, x, dy, params, per,
+                                                    plans))
+                del x, dy, got, again, want, exact, cumulative, cumulative_want
+        torch.cuda.empty_cache()
     return reports
 
 
-def batch_norm_times(name, x, dy, params, per, plans):
+def batch_norm_times(name, layout, fwd, bwd, x, dy, params, per, plans):
     """The kernels in a CUDA graph against their bytes bound, the plain
-    forward eager, and torch's batch norm in a graph."""
+    forward eager, and torch's batch norm in x's layout in a graph."""
     import torch.nn.functional as F
 
     from margipose_tpu_torch.ops import batch_norm as bn
@@ -3395,13 +3451,11 @@ def batch_norm_times(name, x, dy, params, per, plans):
     b, c, h, w = x.shape
     weight, bias, mean, var = (p.clone() for p in params)
     tracked = torch.zeros((), dtype=torch.long, device='cuda')
-    y, save_mean, save_invstd = bn.batch_norm_train_fwd(x, weight, bias, mean, var, tracked, 0.1,
-                                                        BATCH_NORM_EPS)
+    y, save_mean, save_invstd = fwd(x, weight, bias, mean, var, tracked, 0.1, BATCH_NORM_EPS)
     times = {
-        'fwd': graph_ms(lambda: bn.batch_norm_train_fwd(x, weight, bias, mean, var, tracked, 0.1,
-                                                        BATCH_NORM_EPS), samples=10),
-        'bwd': graph_ms(lambda: bn.batch_norm_train_bwd(dy, x, weight, save_mean, save_invstd),
-                        samples=10)}
+        'fwd': graph_ms(lambda: fwd(x, weight, bias, mean, var, tracked, 0.1, BATCH_NORM_EPS),
+                        samples=10),
+        'bwd': graph_ms(lambda: bwd(dy, x, weight, save_mean, save_invstd), samples=10)}
     plain = median_ms(lambda: bn.batch_norm_train_plain(x, weight, bias, mean, var, tracked, 0.1,
                                                         BATCH_NORM_EPS), 3, 5)
     library = {'fwd': graph_ms(lambda: F.batch_norm(x, mean, var, weight, bias, True, 0.1,
@@ -3415,7 +3469,8 @@ def batch_norm_times(name, x, dy, params, per, plans):
     except RuntimeError as exc:  # a yardstick only: the port never calls it
         phase(name, f'ATen backward not timed: {exc}')
         library['bwd'] = None
-    report = {'name': 'batch_norm_train', 'shape': [b, c, h, w], 'dtype': str(x.dtype)[6:],
+    report = {'name': 'batch_norm_train' if layout == 'NCHW' else 'batch_norm_train_nhwc',
+              'layout': layout, 'shape': [b, c, h, w], 'dtype': str(x.dtype)[6:],
               'plan': {'fwd': list(plans[0]), 'bwd': list(plans[1])}, 'values_a_access': per}
     for direction in ('fwd', 'bwd'):
         bound_us = batch_norm_bytes(b, c, h, w, x.element_size(), direction) / HBM_BYTES_PER_S * 1e6
@@ -3487,8 +3542,12 @@ def batch_norm_graph_phase():
                 raise AssertionError(f'{name}: graphed steps left the eager ones')
             batch = {k: v.cuda() for k, v in flagship_batch(32, seed=90).items()}
             traced, host, losses = [], [], []
+            # bf16 on one card runs channels-last, float32 NCHW
+            cl = precision == 'bfloat16'
+            symbols = BATCH_NORM_KERNELS[2:] if cl else BATCH_NORM_KERNELS[:2]
+            pair = ('nhwc_fwd', 'nhwc_bwd') if cl else ('fwd', 'bwd')
             for fn in (lambda: fns[0](states[0], batch), lambda: eager(fns[1], states[1], batch)):
-                counters = reset_counts(BATCH_NORM_KERNELS)
+                counters = reset_counts(symbols)
                 losses.append(on_card(fn)[0]['loss'])
                 traced.append(dict(BATCH_NORM_RAN))
                 host.append(tuple(read_counts(counters).values()))
@@ -3497,14 +3556,20 @@ def batch_norm_graph_phase():
             # the kernels ran iff the states stay bit-equal and the eager step
             # launched each batch norm's two; the traces in this long process
             # have missed one or two forward records (377-378 of 379, states
-            # equal), so they are held to no ATen kernel and none too many
+            # equal), so they are held to no ATen kernel, none of the other
+            # layout's and none too many (cuDNN's transposes are reported: its
+            # heuristics transpose 3 small convolutions of a full-size
+            # channels-last flagship step)
             phase(name, f'one replayed and one eager step: host launches {host[0]} and {host[1]}, '
                         f'batch norm in their traces {traced[0]} and {traced[1]}; then '
                         f'{len(differ)} state tensors differ {differ[:4]}, losses '
                         f'{float(losses[0])} vs {float(losses[1])}')
             if (differ or not torch.equal(losses[0], losses[1])
                     or host != [(0, 0), (layers, layers)]
-                    or any(t['aten'] or max(t['fwd'], t['bwd']) > layers for t in traced)):
+                    or any(t['aten'] or max(t[k] for k in pair) > layers
+                           or sum(t[k] for k in ('fwd', 'bwd', 'nhwc_fwd', 'nhwc_bwd')
+                                  if k not in pair)
+                           for t in traced)):
                 raise AssertionError(f'{name}: a traced step left the other or its kernels')
             del states, fns, sd
             torch.cuda.empty_cache()

@@ -42,6 +42,7 @@ from margipose_tpu_torch.eval import gather_3d_metrics, prepare_for_3d_evaluatio
 from margipose_tpu_torch.geometry.coords import ensure_homogeneous
 from margipose_tpu_torch.geometry.skeleton import CanonicalSkeletonDesc, VNect_Common_Skeleton
 from margipose_tpu_torch.models import data_specs_for_desc
+from margipose_tpu_torch.ops.batch_norm import channels_last
 from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.meters import MeanValueMeter, MedianValueMeter
 from margipose_tpu_torch.utils import init_algorithms, seed_all
@@ -344,7 +345,8 @@ def main(argv=None, model=None):
     """Evaluate ``--model``'s checkpoint as ``argv`` says; returns (rows,
     stats). ``model``, a (module, model_desc) pair, is evaluated in place of
     reading ``--model``: the soaks evaluate the live train state so
-    (``soak/child.py``)."""
+    (``soak/child.py``). A channels-last module (a bf16 train step's, on the
+    card) is evaluated as an NCHW copy, as its checkpoint would be."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
     seed_all(12345)
     # cuDNN's deterministic algorithms, whatever an earlier train run in the
@@ -370,6 +372,8 @@ def main(argv=None, model=None):
         model, model_desc = load_model(args.model, device)
     else:
         model, model_desc = model
+        if any(channels_last(p) for p in model.parameters()):
+            model = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
         model = model.to(device).eval()
     dataset = get_dataset(args.dataset, data_specs_for_desc(model_desc), use_aug=False)
     ship_specs = dataset.data_specs.input_specs if ship == 'uint8' else None

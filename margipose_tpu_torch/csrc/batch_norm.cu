@@ -1,6 +1,9 @@
-// Train-mode batch norm over NCHW activations, forward and backward: every
-// batch norm of the port's models while they train on one card
-// (models/layers.BatchNorm2d -> ops/batch_norm.py).
+// Train-mode batch norm, forward and backward: every batch norm of the
+// port's models while they train on one card (models/layers.BatchNorm2d ->
+// ops/batch_norm.py), over NCHW activations (float32 steps) and, further
+// down, over channels-last ones (the bf16 step, whose convolutions cuDNN
+// runs in NHWC: without these the model would have to be NCHW, and cuDNN
+// transposed every convolution's input and output, 21% of that step).
 //
 // It replaces no TPU kernel: on the TPU, XLA fused flax's BatchNorm into the
 // ops around it, and the port first left it to ATen. For channel c of x
@@ -314,7 +317,7 @@ struct Grad {
 };
 
 __device__ __forceinline__ Grad grad_coefficients(float sdy, float sdx, int c, bool first_part,
-                                                  const Layout& l,
+                                                  float inv_count,
                                                   const float* __restrict__ weight,
                                                   const float* __restrict__ mean,
                                                   const float* __restrict__ invstd,
@@ -325,7 +328,7 @@ __device__ __forceinline__ Grad grad_coefficients(float sdy, float sdx, int c, b
     dweight[c] = sdx * is;
     dbias[c] = sdy;
   }
-  return {mean[c], sdy * l.inv_count, sdx * l.inv_count * is * is,
+  return {mean[c], sdy * inv_count, sdx * inv_count * is * is,
           is * (weight ? weight[c] : 1.f)};
 }
 
@@ -440,7 +443,8 @@ batch_norm_train_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, c
       s1 += __shfl_sync(kFull, p.y, q);
     }
     if (threadIdx.x == 0) {
-      coeff = grad_coefficients(s0, s1, c, rank == 0, l, weight, mean, invstd, dweight, dbias);
+      coeff = grad_coefficients(s0, s1, c, rank == 0, l.inv_count, weight, mean, invstd, dweight,
+                                dbias);
     }
   }
   cluster_arrive();
@@ -558,8 +562,8 @@ batch_norm_train_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__
       }
     }
     if (threadIdx.x == 0) {
-      coeff = grad_coefficients(s0, s1, c, blockIdx.x == 0, l, weight, mean, invstd, dweight,
-                                dbias);
+      coeff = grad_coefficients(s0, s1, c, blockIdx.x == 0, l.inv_count, weight, mean, invstd,
+                                dweight, dbias);
     }
   }
   __syncthreads();
@@ -664,6 +668,702 @@ cudaError_t backward(const void* x, const void* dy, const Layout& l, bool split,
                 l, static_cast<const float2*>(ws), w, mean, invstd, dxt, dw, db);
 }
 
+// ---- channels-last: x [rows = B * H * W, C], channels innermost ----
+//
+// The bf16 train step on one card runs channels-last (train/steps.py), so
+// that cuDNN's NHWC convolutions read and write the activations without
+// transposing them; these kernels are its batch norms, with the same
+// arithmetic as the kernels above. A channel's values no longer lie in one
+// contiguous slice but C values apart, one in every row. So a block takes a
+// group of channels (tc 16-byte vectors of a row, tc a power of two up to
+// 32, so that a warp reads 32 / tc rows of tc neighbouring vectors) over a
+// range of rows; thread t takes vector t % tc of its group in rows t / tc,
+// t / tc + 256 / tc, ... (ops/batch_norm.plan_nhwc chooses tc and the row
+// parts from C, the rows and the dtype).
+// - Resident (one kernel): a cluster of k <= 8 blocks covers all rows of
+//   its group, each block holding its rows of the group in shared memory
+//   (cp.async). Statistics by two passes over shared memory; a block's
+//   per-channel sums across its threads in a fixed order (a butterfly over
+//   a column's lanes, then the warps in order); the k blocks' (count, mean,
+//   M2) read through distributed shared memory at once, then merged in rank
+//   order; y written from shared memory: x read once.
+// - Split (a group's rows too many for 8 blocks' 128 KB, single values, or
+//   a cluster launch too large to pay; plan_nhwc decides): three kernels.
+//   The partial kernel streams rows (Welford's update in each thread,
+//   merged across the block in a fixed tree) into a workspace [parts, C];
+//   one warp a channel merges the parts in a fixed order and writes the
+//   saved and running statistics; the apply kernel reads x again (from the
+//   50 MB L2 where the tensor fits) and writes y. The backward likewise,
+//   with the sums of dy and dy (x - mean).
+// No float atomics: a launch gives the same bits every time. The bound is
+// the NCHW pair's (bytes). On an H100 in CUDA graphs the pair takes about
+// 1.6x the NCHW pair's time over the flagship's 379 layers (PERF.md §6):
+// the small layers wait on their clusters' phases, the split ones read x
+// twice; the step still gains, as cuDNN no longer transposes.
+
+constexpr int kMaxGroup = 256;            // a group's channels: 32 vectors of 8 bf16 values
+constexpr int kBatch = 8;                 // rows a streaming thread loads before it uses them
+constexpr int kRedWidth = 2 * kMaxGroup;  // a warp's sums: two a channel in the backward
+
+struct Nhwc {
+  int rows;         // B * H * W
+  int channels;     // C
+  int cols;         // vectors a row: C / V
+  int tc;           // a group's vectors: a power of two, 1-32
+  int shift;        // log2 tc
+  int parts;        // blocks a group along the rows: the cluster's size, or the split's
+  float inv_count;  // 1 / rows
+};
+
+// A block's rows [begin, end) of group blockIdx.y; the thread's vector
+// column col in the row (slot in the group), its first row lane and the
+// lanes' step; active while col lies inside the row.
+struct Tile {
+  int begin, end, col, slot, lane, step;
+  bool active;
+};
+
+__device__ __forceinline__ Tile make_tile(const Nhwc& l, int part) {
+  Tile t;
+  t.begin = static_cast<int>(static_cast<int64_t>(l.rows) * part / l.parts);
+  t.end = static_cast<int>(static_cast<int64_t>(l.rows) * (part + 1) / l.parts);
+  t.slot = static_cast<int>(threadIdx.x) & (l.tc - 1);
+  t.col = static_cast<int>(blockIdx.y) * l.tc + t.slot;
+  t.lane = static_cast<int>(threadIdx.x) >> l.shift;
+  t.step = kThreads >> l.shift;
+  t.active = t.col < l.cols;
+  return t;
+}
+
+// A resident block's slice of one tensor in vectors: the largest share of
+// rows, tc vectors each.
+__host__ __device__ __forceinline__ int slice_vectors(const Nhwc& l) {
+  return (l.rows + l.parts - 1) / l.parts * l.tc;
+}
+
+// Where the gathered partials start after `bytes` of slices: 16-byte aligned.
+__host__ __device__ __forceinline__ size_t after_slices(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ int64_t at(const Nhwc& l, int row, int col) {
+  return static_cast<int64_t>(row) * l.cols + col;
+}
+
+// a and b as one; a partial of no values gives the other.
+__device__ __forceinline__ Stat merge_nz(const Stat& a, const Stat& b) {
+  if (b.n == 0.f) return a;
+  if (a.n == 0.f) return b;
+  return merge(a, b);
+}
+
+__device__ __forceinline__ Stat shuffle_down(const Stat& a, int off) {
+  return {__shfl_down_sync(kFull, a.n, off), __shfl_down_sync(kFull, a.mean, off),
+          __shfl_down_sync(kFull, a.m2, off)};
+}
+
+// Channel c's float32 inputs for the statistics' last step, read while
+// the slices load: weight, bias, running mean and variance (forward) or
+// saved mean, saved invstd and weight (backward).
+struct Channel {
+  float a, b, c, d;
+};
+
+__device__ __forceinline__ Channel channel_fwd(int c, const float* __restrict__ weight,
+                                               const float* __restrict__ bias, const Running& run) {
+  return {weight ? weight[c] : 1.f, bias ? bias[c] : 0.f, run.mean[c], run.var[c]};
+}
+
+// finish() with the channel's values already read.
+__device__ __forceinline__ float3 finish_read(const Stat& s, int c, bool first_part,
+                                              const Channel& ch, float eps, const Running& run,
+                                              float* __restrict__ save_mean,
+                                              float* __restrict__ save_invstd) {
+  const float var = s.m2 / s.n;
+  const float invstd = 1.f / sqrtf(var + eps);
+  if (first_part) {
+    save_mean[c] = s.mean;
+    save_invstd[c] = invstd;
+    float f = run.momentum;
+    if (f < 0.f) f = 1.f / static_cast<float>(*run.tracked);
+    run.mean[c] = fmaf(f, s.mean, (1.f - f) * ch.c);
+    run.var[c] = fmaf(f, var, (1.f - f) * ch.d);
+    if (c == 0 && run.momentum >= 0.f) *run.tracked += 1;
+  }
+  return make_float3(s.mean, invstd * ch.a, ch.b);
+}
+
+// Every thread gets its column's block sums of v (N values a column) in one
+// fixed order: the column's lanes by a butterfly (a + b == b + a, so each
+// lane holds the same bits), then the warps in order. red holds kWarps rows.
+template <int N>
+__device__ __forceinline__ void column_sum(float (&v)[N], int tc, float (*red)[kRedWidth]) {
+  for (int off = tc; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(kFull, v[i], off);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < tc) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[warp][lane * N + i] = v[i];
+  }
+  __syncthreads();
+  const int slot = threadIdx.x & (tc - 1);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = red[0][slot * N + i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w][slot * N + i];
+    v[i] = s;
+  }
+  __syncthreads();  // red free again
+}
+
+// The tile's rows of its column into dst: row r's vector at slot
+// (r - begin) * tc + slot, which only this thread reads later.
+template <typename P>
+__device__ __forceinline__ void load_rows(const P* __restrict__ src, const Nhwc& l, const Tile& t,
+                                          P* dst) {
+  for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+    const P* g = src + at(l, r, t.col);
+    P* d = dst + (r - t.begin) * l.tc + t.slot;
+    if constexpr (sizeof(P) == 16) {
+      cp_async16(d, g);
+    } else {
+      *d = *g;
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_fwd_kernel(const T* __restrict__ x, const Nhwc l,
+                                 const float* __restrict__ weight, const float* __restrict__ bias,
+                                 float eps, const Running run, T* __restrict__ y,
+                                 float* __restrict__ save_mean, float* __restrict__ save_invstd) {
+  using P = typename Pack<T, V>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  P* s = reinterpret_cast<P*>(smem);
+  // after the slice: the cluster's partials, [parts][the group's channels]
+  Stat* gathered = reinterpret_cast<Stat*>(smem + after_slices(slice_vectors(l) * sizeof(P)));
+  __shared__ float red[kWarps][kRedWidth];
+  __shared__ Stat part[kMaxGroup];
+  __shared__ float3 norm[kMaxGroup];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Tile t = make_tile(l, rank);
+  if (t.active) load_rows(reinterpret_cast<const P*>(x), l, t, s);
+  const int width = l.tc * V;  // the group's channels
+  const int first = static_cast<int>(blockIdx.y) * width;  // the group's first channel
+  const int i = threadIdx.x;
+  const bool merges = i < width && first + i < l.channels;
+  const Channel ch = merges ? channel_fwd(first + i, weight, bias, run) : Channel{};
+  wait_slices();
+  float v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = 0.f;
+  if (t.active) {
+    for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+      float xv[V];
+      unpack(s[(r - t.begin) * l.tc + t.slot], xv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] += xv[k];
+    }
+  }
+  column_sum<V>(v, l.tc, red);
+  const float count = static_cast<float>(t.end - t.begin);
+  float mean[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) mean[k] = v[k] / count, v[k] = 0.f;
+  if (t.active) {
+    for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+      float xv[V];
+      unpack(s[(r - t.begin) * l.tc + t.slot], xv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = xv[k] - mean[k];
+        v[k] = fmaf(d, d, v[k]);
+      }
+    }
+  }
+  column_sum<V>(v, l.tc, red);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) part[t.slot * V + k] = {count, mean[k], v[k]};
+  }
+  cluster.sync();  // every block's partials written
+  // every (rank, channel) partial read at once, then merged in rank order
+  for (int j = threadIdx.x; j < l.parts * width; j += kThreads) {
+    gathered[j] = *cluster.map_shared_rank(&part[j % width], j / width);
+  }
+  cluster_arrive();  // done reading the others' partials
+  __syncthreads();
+  if (merges) {
+    Stat all = gathered[i];
+    for (int q = 1; q < l.parts; ++q) all = merge(all, gathered[q * width + i]);
+    norm[i] = finish_read(all, first + i, rank == 0, ch, eps, run, save_mean, save_invstd);
+  }
+  __syncthreads();
+  if (t.active) {
+    float3 nm[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) nm[k] = norm[t.slot * V + k];
+    P* out = reinterpret_cast<P*>(y);
+    for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+      float xv[V];
+      unpack(s[(r - t.begin) * l.tc + t.slot], xv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) xv[k] = fmaf(xv[k] - nm[k].x, nm[k].y, nm[k].z);
+      pack(xv, out[at(l, r, t.col)]);
+    }
+  }
+  cluster_wait();  // no block leaves while another may read its partials
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                 const Nhwc l, const float* __restrict__ weight,
+                                 const float* __restrict__ mean,
+                                 const float* __restrict__ invstd, T* __restrict__ dx,
+                                 float* __restrict__ dweight, float* __restrict__ dbias) {
+  using P = typename Pack<T, V>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int most = (l.rows + l.parts - 1) / l.parts;  // the largest share of rows
+  P* sx = reinterpret_cast<P*>(smem);
+  P* sdy = sx + most * l.tc;
+  float2* gathered =
+      reinterpret_cast<float2*>(smem + after_slices(2 * slice_vectors(l) * sizeof(P)));
+  __shared__ float red[kWarps][kRedWidth];
+  __shared__ float2 part[kMaxGroup];
+  __shared__ Grad coeff[kMaxGroup];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Tile t = make_tile(l, rank);
+  if (t.active) {
+    load_rows(reinterpret_cast<const P*>(x), l, t, sx);
+    load_rows(reinterpret_cast<const P*>(dy), l, t, sdy);
+  }
+  float mu[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) mu[k] = t.active ? mean[t.col * V + k] : 0.f;
+  const int width = l.tc * V;
+  const int first = static_cast<int>(blockIdx.y) * width;
+  const int i = threadIdx.x;
+  const bool merges = i < width && first + i < l.channels;
+  const Channel ch = merges ? Channel{mean[first + i], invstd[first + i],
+                                      weight ? weight[first + i] : 1.f, 0.f}
+                            : Channel{};
+  wait_slices();
+  float v[2 * V];
+#pragma unroll
+  for (int k = 0; k < 2 * V; ++k) v[k] = 0.f;
+  if (t.active) {
+    for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+      const int j = (r - t.begin) * l.tc + t.slot;
+      float xv[V], gv[V];
+      unpack(sx[j], xv);
+      unpack(sdy[j], gv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        v[k] += gv[k];
+        v[V + k] = fmaf(gv[k], xv[k] - mu[k], v[V + k]);
+      }
+    }
+  }
+  column_sum<2 * V>(v, l.tc, red);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) part[t.slot * V + k] = make_float2(v[k], v[V + k]);
+  }
+  cluster.sync();  // every block's sums written
+  for (int j = threadIdx.x; j < l.parts * width; j += kThreads) {
+    gathered[j] = *cluster.map_shared_rank(&part[j % width], j / width);
+  }
+  cluster_arrive();
+  __syncthreads();
+  if (merges) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int q = 0; q < l.parts; ++q) {
+      s0 += gathered[q * width + i].x;
+      s1 += gathered[q * width + i].y;
+    }
+    if (rank == 0 && dweight) {  // as grad_coefficients, the channel's values read
+      dweight[first + i] = s1 * ch.b;
+      dbias[first + i] = s0;
+    }
+    coeff[i] = {ch.a, s0 * l.inv_count, s1 * l.inv_count * ch.b * ch.b, ch.b * ch.c};
+  }
+  __syncthreads();
+  if (t.active) {
+    Grad g[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) g[k] = coeff[t.slot * V + k];
+    P* out = reinterpret_cast<P*>(dx);
+    for (int r = t.begin + t.lane; r < t.end; r += t.step) {
+      const int j = (r - t.begin) * l.tc + t.slot;
+      float xv[V], gv[V];
+      unpack(sx[j], xv);
+      unpack(sdy[j], gv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        xv[k] = (gv[k] - g[k].grad_mean - (xv[k] - g[k].mean) * g[k].proj) * g[k].scale;
+      }
+      pack(xv, out[at(l, r, t.col)]);
+    }
+  }
+  cluster_wait();
+}
+
+// ---- the channels-last split path: partials, a warp a channel, apply ----
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_fwd_partial_kernel(const T* __restrict__ x, const Nhwc l,
+                                         Stat* __restrict__ work) {
+  using P = typename Pack<T, V>::type;
+  __shared__ Stat warps[kWarps][kMaxGroup];
+  const Tile t = make_tile(l, blockIdx.x);
+  Stat st[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) st[k] = {0.f, 0.f, 0.f};
+  if (t.active) {
+    const P* in = reinterpret_cast<const P*>(x);
+    float n = 0.f;
+    for (int r0 = t.begin + t.lane; r0 < t.end; r0 += kBatch * t.step) {
+      P batch[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = r0 + u * t.step;
+        if (r < t.end) batch[u] = in[at(l, r, t.col)];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (r0 + u * t.step >= t.end) break;
+        float xv[V];
+        unpack(batch[u], xv);
+        n += 1.f;
+        const float inv = 1.f / n;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {  // Welford's update
+          const float d = xv[k] - st[k].mean;
+          st[k].mean = fmaf(d, inv, st[k].mean);
+          st[k].m2 = fmaf(d, xv[k] - st[k].mean, st[k].m2);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) st[k].n = n;
+  }
+  // a warp's row lanes of a column into its lowest, in a fixed tree
+  const int lane = threadIdx.x & 31;
+  for (int off = l.tc; off < 32; off <<= 1) {
+    const bool keeps = ((lane >> l.shift) & ((2 * off >> l.shift) - 1)) == 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const Stat o = shuffle_down(st[k], off);
+      if (keeps) st[k] = merge_nz(st[k], o);
+    }
+  }
+  if (lane < l.tc) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) warps[threadIdx.x >> 5][t.slot * V + k] = st[k];
+  }
+  __syncthreads();
+  const int first = static_cast<int>(blockIdx.y) * l.tc * V;
+  const int i = threadIdx.x;
+  if (i < l.tc * V && first + i < l.channels) {
+    Stat all = warps[0][i];
+    for (int w = 1; w < kWarps; ++w) all = merge_nz(all, warps[w][i]);
+    work[static_cast<int64_t>(blockIdx.x) * l.channels + first + i] = all;
+  }
+}
+
+// A warp a channel: the parts' partials in a fixed order (lane q takes
+// parts q, q + 32, ..., then a tree into lane 0), then the statistics.
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_fwd_finish_kernel(const Stat* __restrict__ work, int parts, int channels,
+                                        const float* __restrict__ weight,
+                                        const float* __restrict__ bias, float eps,
+                                        const Running run, float* __restrict__ save_mean,
+                                        float* __restrict__ save_invstd) {
+  const int c = static_cast<int>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= channels) return;  // the whole warp
+  Stat s = {0.f, 0.f, 0.f};
+  for (int q0 = lane; q0 < parts; q0 += 32 * kBatch) {
+    Stat batch[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + 32 * u;
+      batch[u] = q < parts ? work[static_cast<int64_t>(q) * channels + c] : Stat{0.f, 0.f, 0.f};
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) s = merge_nz(s, batch[u]);
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    const Stat o = shuffle_down(s, off);
+    if ((lane & (2 * off - 1)) == 0) s = merge_nz(s, o);
+  }
+  if (lane == 0) finish(s, c, true, weight, bias, eps, run, save_mean, save_invstd);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_fwd_apply_kernel(const T* __restrict__ x, const Nhwc l,
+                                       const float* __restrict__ weight,
+                                       const float* __restrict__ bias,
+                                       const float* __restrict__ save_mean,
+                                       const float* __restrict__ save_invstd, T* __restrict__ y) {
+  using P = typename Pack<T, V>::type;
+  const Tile t = make_tile(l, blockIdx.x);
+  if (!t.active) return;
+  float3 nm[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = t.col * V + k;
+    nm[k] = make_float3(save_mean[c], save_invstd[c] * (weight ? weight[c] : 1.f),
+                        bias ? bias[c] : 0.f);
+  }
+  const P* in = reinterpret_cast<const P*>(x);
+  P* out = reinterpret_cast<P*>(y);
+  for (int r0 = t.begin + t.lane; r0 < t.end; r0 += kBatch * t.step) {
+    P batch[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int r = r0 + u * t.step;
+      if (r < t.end) batch[u] = in[at(l, r, t.col)];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int r = r0 + u * t.step;
+      if (r >= t.end) break;
+      float xv[V];
+      unpack(batch[u], xv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) xv[k] = fmaf(xv[k] - nm[k].x, nm[k].y, nm[k].z);
+      pack(xv, out[at(l, r, t.col)]);
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_bwd_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                         const Nhwc l, const float* __restrict__ mean,
+                                         float2* __restrict__ work) {
+  using P = typename Pack<T, V>::type;
+  __shared__ float red[kWarps][kRedWidth];
+  const Tile t = make_tile(l, blockIdx.x);
+  float v[2 * V];
+#pragma unroll
+  for (int k = 0; k < 2 * V; ++k) v[k] = 0.f;
+  if (t.active) {
+    float mu[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) mu[k] = mean[t.col * V + k];
+    const P* xin = reinterpret_cast<const P*>(x);
+    const P* dyin = reinterpret_cast<const P*>(dy);
+    constexpr int kHalf = kBatch / 2;  // two tensors: as many bytes in flight
+    for (int r0 = t.begin + t.lane; r0 < t.end; r0 += kHalf * t.step) {
+      P bx[kHalf], bg[kHalf];
+#pragma unroll
+      for (int u = 0; u < kHalf; ++u) {
+        const int r = r0 + u * t.step;
+        if (r < t.end) bx[u] = xin[at(l, r, t.col)], bg[u] = dyin[at(l, r, t.col)];
+      }
+#pragma unroll
+      for (int u = 0; u < kHalf; ++u) {
+        if (r0 + u * t.step >= t.end) break;
+        float xv[V], gv[V];
+        unpack(bx[u], xv);
+        unpack(bg[u], gv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          v[k] += gv[k];
+          v[V + k] = fmaf(gv[k], xv[k] - mu[k], v[V + k]);
+        }
+      }
+    }
+  }
+  column_sum<2 * V>(v, l.tc, red);
+  if (t.active && t.lane == 0) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      work[static_cast<int64_t>(blockIdx.x) * l.channels + t.col * V + k] =
+          make_float2(v[k], v[V + k]);
+    }
+  }
+}
+
+// A warp a channel: the parts' sums in a fixed order into row `parts` of
+// the workspace, and the weight's and bias's gradients.
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_bwd_finish_kernel(float2* __restrict__ work, int parts, int channels,
+                                        const float* __restrict__ invstd,
+                                        float* __restrict__ dweight, float* __restrict__ dbias) {
+  const int c = static_cast<int>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= channels) return;
+  float s0 = 0.f, s1 = 0.f;
+  for (int q0 = lane; q0 < parts; q0 += 32 * kBatch) {
+    float2 batch[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + 32 * u;
+      batch[u] = q < parts ? work[static_cast<int64_t>(q) * channels + c] : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) s0 += batch[u].x, s1 += batch[u].y;
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o0 = __shfl_down_sync(kFull, s0, off), o1 = __shfl_down_sync(kFull, s1, off);
+    if ((lane & (2 * off - 1)) == 0) s0 += o0, s1 += o1;
+  }
+  if (lane == 0) {
+    work[static_cast<int64_t>(parts) * channels + c] = make_float2(s0, s1);
+    if (dweight) {
+      dweight[c] = s1 * invstd[c];
+      dbias[c] = s0;
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_train_nhwc_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                       const Nhwc l, const float2* __restrict__ sums,
+                                       const float* __restrict__ weight,
+                                       const float* __restrict__ mean,
+                                       const float* __restrict__ invstd, T* __restrict__ dx) {
+  using P = typename Pack<T, V>::type;
+  const Tile t = make_tile(l, blockIdx.x);
+  if (!t.active) return;
+  Grad g[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = t.col * V + k;
+    const float2 s = sums[c];
+    g[k] = grad_coefficients(s.x, s.y, c, false, l.inv_count, weight, mean, invstd, nullptr,
+                             nullptr);
+  }
+  const P* xin = reinterpret_cast<const P*>(x);
+  const P* dyin = reinterpret_cast<const P*>(dy);
+  P* out = reinterpret_cast<P*>(dx);
+  constexpr int kHalf = kBatch / 2;
+  for (int r0 = t.begin + t.lane; r0 < t.end; r0 += kHalf * t.step) {
+    P bx[kHalf], bg[kHalf];
+#pragma unroll
+    for (int u = 0; u < kHalf; ++u) {
+      const int r = r0 + u * t.step;
+      if (r < t.end) bx[u] = xin[at(l, r, t.col)], bg[u] = dyin[at(l, r, t.col)];
+    }
+#pragma unroll
+    for (int u = 0; u < kHalf; ++u) {
+      const int r = r0 + u * t.step;
+      if (r >= t.end) break;
+      float xv[V], gv[V];
+      unpack(bx[u], xv);
+      unpack(bg[u], gv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        xv[k] = (gv[k] - g[k].grad_mean - (xv[k] - g[k].mean) * g[k].proj) * g[k].scale;
+      }
+      pack(xv, out[at(l, r, t.col)]);
+    }
+  }
+}
+
+// The layout of x [rows, channels] in vectors of 16 bytes (vec) or of one
+// value, tc vectors a group and parts blocks a group; false for what the
+// kernels do not take. `bytes` is a resident block's shared memory.
+bool setup_nhwc(int rows, int channels, int value_bytes, int vec, int tc, int parts, int split,
+                int tensors, Nhwc& l, size_t& bytes) {
+  const int per = vec ? 16 / value_bytes : 1;
+  if (rows < 2 || channels < 1 || channels > 65535 || channels % per != 0 || tc < 1 ||
+      tc > 32 || (tc & (tc - 1)) != 0 || parts < 1 || parts > rows) {
+    return false;
+  }
+  l.rows = rows;
+  l.channels = channels;
+  l.cols = channels / per;
+  l.tc = tc;
+  l.shift = 0;
+  while ((1 << l.shift) < tc) ++l.shift;
+  l.parts = parts;
+  l.inv_count = static_cast<float>(1.0 / static_cast<double>(rows));
+  bytes = 0;
+  if (split) return true;
+  size_t slice = static_cast<size_t>(slice_vectors(l)) * per * value_bytes * tensors;
+  if (parts > kMaxCluster || slice > static_cast<size_t>(kMaxSliceBytes)) return false;
+  // the cluster's gathered partials after the slices
+  bytes = after_slices(slice) + static_cast<size_t>(parts) * tc * per *
+                                    (tensors == 1 ? sizeof(Stat) : sizeof(float2));
+  return true;
+}
+
+int groups(const Nhwc& l) { return (l.cols + l.tc - 1) / l.tc; }
+
+// A resident kernel's static shared memory (about 22 KB) and its dynamic
+// shared memory pass 48 KB together at most sizes: always opt in.
+template <typename Kernel>
+cudaError_t allow_slice(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+int warp_blocks(int channels) { return (channels + kWarps - 1) / kWarps; }
+
+template <typename T, int V>
+cudaError_t forward_nhwc(const void* x, const Nhwc& l, bool split, size_t bytes, const float* w,
+                         const float* b, float eps, const Running& run, void* y, float* save_mean,
+                         float* save_invstd, void* work, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (!split) {
+    const cudaError_t err = allow_slice(batch_norm_train_nhwc_fwd_kernel<T, V>, bytes);
+    if (err != cudaSuccess) return err;
+    return launch(batch_norm_train_nhwc_fwd_kernel<T, V>, l.parts, groups(l), l.parts, bytes, st,
+                  xt, l, w, b, eps, run, yt, save_mean, save_invstd);
+  }
+  Stat* ws = static_cast<Stat*>(work);
+  cudaError_t err = launch(batch_norm_train_nhwc_fwd_partial_kernel<T, V>, l.parts, groups(l), 0,
+                           0, st, xt, l, ws);
+  if (err != cudaSuccess) return err;
+  err = launch(batch_norm_train_nhwc_fwd_finish_kernel, warp_blocks(l.channels), 1, 0, 0, st,
+               static_cast<const Stat*>(ws), l.parts, l.channels, w, b, eps, run, save_mean,
+               save_invstd);
+  if (err != cudaSuccess) return err;
+  return launch(batch_norm_train_nhwc_fwd_apply_kernel<T, V>, l.parts, groups(l), 0, 0, st, xt,
+                l, w, b, static_cast<const float*>(save_mean),
+                static_cast<const float*>(save_invstd), yt);
+}
+
+template <typename T, int V>
+cudaError_t backward_nhwc(const void* x, const void* dy, const Nhwc& l, bool split, size_t bytes,
+                          const float* w, const float* mean, const float* invstd, void* dx,
+                          float* dw, float* db, void* work, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  if (!split) {
+    const cudaError_t err = allow_slice(batch_norm_train_nhwc_bwd_kernel<T, V>, bytes);
+    if (err != cudaSuccess) return err;
+    return launch(batch_norm_train_nhwc_bwd_kernel<T, V>, l.parts, groups(l), l.parts, bytes, st,
+                  xt, dyt, l, w, mean, invstd, dxt, dw, db);
+  }
+  float2* ws = static_cast<float2*>(work);
+  cudaError_t err = launch(batch_norm_train_nhwc_bwd_partial_kernel<T, V>, l.parts, groups(l), 0,
+                           0, st, xt, dyt, l, mean, ws);
+  if (err != cudaSuccess) return err;
+  err = launch(batch_norm_train_nhwc_bwd_finish_kernel, warp_blocks(l.channels), 1, 0, 0, st, ws,
+               l.parts, l.channels, invstd, dw, db);
+  if (err != cudaSuccess) return err;
+  const float2* sums = ws + static_cast<int64_t>(l.parts) * l.channels;
+  return launch(batch_norm_train_nhwc_bwd_apply_kernel<T, V>, l.parts, groups(l), 0, 0, st, xt,
+                dyt, l, sums, w, mean, invstd, dxt);
+}
+
 }  // namespace
 
 // x [batch, channels, plane] contiguous, float32 (bf16 = 0) or bf16 (bf16 =
@@ -739,6 +1439,84 @@ extern "C" int batch_norm_train_bwd(const void* x, const void* dy, int bf16, int
   } else {
     err = vec ? backward<float, 4>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work, st)
               : backward<float, 1>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [rows, channels] channels-last (the NHWC memory of [B, C, H, W], rows =
+// B * H * W), float32 (bf16 = 0) or bf16 (bf16 = 1); vec = 1: channels a
+// multiple of 16 bytes' values and x, y 16-byte aligned. tc: a group's
+// vectors, a power of two up to 32; parts: the cluster's size (split = 0)
+// or the blocks a group along the rows (split = 1, with work [parts,
+// channels, 3] float32). The other arguments as batch_norm_train_fwd's; y
+// like x. Launches on `stream`; returns as batch_norm_train_fwd.
+extern "C" int batch_norm_train_nhwc_fwd(const void* x, int bf16, int vec, int rows,
+                                         int channels, int tc, int parts, int split,
+                                         const void* weight, const void* bias,
+                                         void* running_mean, void* running_var, void* tracked,
+                                         float momentum, float eps, void* y, void* save_mean,
+                                         void* save_invstd, void* work, void* stream) {
+  Nhwc l;
+  size_t bytes = 0;
+  if (!setup_nhwc(rows, channels, bf16 ? 2 : 4, vec, tc, parts, split, 1, l, bytes) ||
+      (vec && (!aligned16(x) || !aligned16(y))) || (split && !work) ||
+      (weight == nullptr) != (bias == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const Running run = {static_cast<float*>(running_mean), static_cast<float*>(running_var),
+                       static_cast<int64_t*>(tracked), momentum};
+  const float* w = static_cast<const float*>(weight);
+  const float* b = static_cast<const float*>(bias);
+  float* sm = static_cast<float*>(save_mean);
+  float* si = static_cast<float*>(save_invstd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16) {
+    err = vec ? forward_nhwc<__nv_bfloat16, 8>(x, l, split, bytes, w, b, eps, run, y, sm, si, work,
+                                               st)
+              : forward_nhwc<__nv_bfloat16, 1>(x, l, split, bytes, w, b, eps, run, y, sm, si, work,
+                                               st);
+  } else {
+    err = vec ? forward_nhwc<float, 4>(x, l, split, bytes, w, b, eps, run, y, sm, si, work, st)
+              : forward_nhwc<float, 1>(x, l, split, bytes, w, b, eps, run, y, sm, si, work, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x as batch_norm_train_nhwc_fwd took it, dy and dx like x (vec = 1: all
+// three 16-byte aligned); weight, save_mean, save_invstd, dweight and dbias
+// as batch_norm_train_bwd's; tc, parts and split as in the forward (work
+// [parts + 1, channels, 2] float32). Launches on `stream`; returns as the
+// forward.
+extern "C" int batch_norm_train_nhwc_bwd(const void* x, const void* dy, int bf16, int vec,
+                                         int rows, int channels, int tc, int parts, int split,
+                                         const void* weight, const void* save_mean,
+                                         const void* save_invstd, void* dx, void* dweight,
+                                         void* dbias, void* work, void* stream) {
+  Nhwc l;
+  size_t bytes = 0;
+  if (!setup_nhwc(rows, channels, bf16 ? 2 : 4, vec, tc, parts, split, 2, l, bytes) ||
+      (vec && (!aligned16(x) || !aligned16(dy) || !aligned16(dx))) || (split && !work) ||
+      (weight == nullptr) != (dweight == nullptr) || (dweight == nullptr) != (dbias == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const float* w = static_cast<const float*>(weight);
+  const float* m = static_cast<const float*>(save_mean);
+  const float* is = static_cast<const float*>(save_invstd);
+  float* dw = static_cast<float*>(dweight);
+  float* db = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16) {
+    err = vec ? backward_nhwc<__nv_bfloat16, 8>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work,
+                                                st)
+              : backward_nhwc<__nv_bfloat16, 1>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work,
+                                                st);
+  } else {
+    err = vec ? backward_nhwc<float, 4>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work, st)
+              : backward_nhwc<float, 1>(x, dy, l, split, bytes, w, m, is, dx, dw, db, work, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -12,9 +12,10 @@ planes reach the loss through ``margipose_masked_loss``, and so through one
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from margipose_tpu_torch.models.layers import BatchNorm2d, init_parameters
+from margipose_tpu_torch.models.layers import BatchNorm2d, init_parameters, to_nchw
 from margipose_tpu_torch.models.margipose import MarginalLoss, ModelOutput, heatmaps_to_coords
 from margipose_tpu_torch.models.resnet import (
     ResLayer,
@@ -158,8 +159,8 @@ class ChatterboxModel(MarginalLoss, nn.Module):
 
     def forward(self, x):
         t = self.in_cnn(x)
-        # softmax in f32, whatever the compute type
-        out = ModelOutput(*((flat_softmax(head(t).float()),)
+        # softmax in f32, whatever the compute type, NCHW
+        out = ModelOutput(*((flat_softmax(to_nchw(head(t), torch.float32)),)
                             for head in (self.xy_hm_cnn, self.zy_hm_cnn, self.xz_hm_cnn)))
         xyz = heatmaps_to_coords(out.xy_heatmaps[-1], out.zy_heatmaps[-1], out.xz_heatmaps[-1])
         return xyz, out

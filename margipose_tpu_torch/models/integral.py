@@ -34,6 +34,7 @@ from torch import nn
 
 from margipose_tpu_torch.models.layers import BatchNorm2d, init_parameters
 from margipose_tpu_torch.models.resnet import ResNet50Trunk
+from margipose_tpu_torch.ops.batch_norm import channels_last
 from margipose_tpu_torch.ops.dsnt import average_loss
 from margipose_tpu_torch.ops.softargmax3d import softargmax3d
 
@@ -55,9 +56,50 @@ class IntegralOutput(NamedTuple):
     xyz: torch.Tensor
 
 
+class _OutputConv(torch.autograd.Function):
+    """The head's 1x1 output convolution with bias of a channels-last x
+    [B, C, H, W], as batched GEMMs that write the logits NCHW: [B, O, H * W]
+    = [W | b] [O, C + 1] x [x | 1] [B, C + 1, H * W], the channels-last x a
+    transposed operand, its row of ones appended in one copy (padded with
+    zeros to a multiple of 8 for the tensor cores). The soft-argmax kernels
+    read NCHW; a convolution would write channels-last logits (285 MB in
+    the train cell) for a copy each way, and a separate bias add would pass
+    over them once more. x's gradient comes back channels-last; the
+    weight's and bias's are the batch's sum of per-image products."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type='cuda')
+    def forward(ctx, x, weight, bias):
+        b, c, h, w = x.shape
+        o = weight.shape[0]
+        pad = -(c + 1) % 8
+        rows = x.permute(0, 2, 3, 1).reshape(b, h * w, c)  # a view of channels-last memory
+        tail = x.new_zeros(1 + pad)  # made on the device (a fill, no copy): a graph captures it
+        tail[:1].fill_(1.0)
+        tail = tail.expand(b, h * w, 1 + pad)
+        ones = torch.cat([rows, tail], -1)
+        wb = torch.cat([weight.reshape(o, c), bias[:, None], bias.new_zeros(o, pad)], 1)
+        ctx.save_for_backward(ones, weight)
+        return torch.matmul(wb, ones.transpose(1, 2)).view(b, o, h, w)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type='cuda')
+    def backward(ctx, grad):
+        ones, weight = ctx.saved_tensors
+        b, o, h, w = grad.shape
+        c = weight.shape[1]
+        g = grad.reshape(b, o, h * w)
+        dx = torch.matmul(g.transpose(1, 2), weight.reshape(o, c))  # [B, H * W, C]
+        dwb = torch.matmul(g, ones).sum(0).to(weight.dtype)  # [O, C + 1 + pad]
+        return (dx.view(b, h, w, c).permute(0, 3, 1, 2), dwb[:, :c].reshape(weight.shape),
+                dwb[:, c])
+
+
 class DeconvHead(nn.Module):
     """``features``: (ConvTranspose2d, BatchNorm2d, ReLU) x ``n_deconv``, then
-    the 1x1 output conv with bias (the public code's ``DeconvHead``)."""
+    the 1x1 output conv with bias (the public code's ``DeconvHead``). Its
+    output is NCHW whatever x's layout: a channels-last x takes the output
+    conv as GEMMs (``_OutputConv``)."""
 
     def __init__(self, in_ch: int, n_deconv: int, filters: int, out_ch: int):
         super().__init__()
@@ -70,7 +112,12 @@ class DeconvHead(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.features(x)
+        *body, out = self.features
+        for layer in body:
+            x = layer(x)
+        if channels_last(x):
+            return _OutputConv.apply(x, out.weight, out.bias)
+        return out(x)
 
 
 class IntegralPoseModel(nn.Module):

@@ -6,6 +6,10 @@ and so is batch norm in eval mode; train-mode batch norm runs the port's
 kernels on the card (``ops/batch_norm.py``). Child names follow the
 reference Sequential indices, so the port's keys are the keys
 ``margipose_tpu.train.torch_import`` exports.
+
+The modules take NCHW or channels-last activations and keep the layout
+they are given (the bf16 train step on one card runs channels-last,
+``train/steps.py``); ``to_nchw`` hands a head its input NCHW-contiguous.
 """
 
 from __future__ import annotations
@@ -13,8 +17,38 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from margipose_tpu_torch.ops.batch_norm import batch_norm_train, keep
+from margipose_tpu_torch.ops.batch_norm import (
+    batch_norm_train,
+    batch_norm_train_nhwc,
+    channels_last,
+    keep,
+)
 from margipose_tpu_torch.parallel import mesh
+
+
+class _ToNchw(torch.autograd.Function):
+    """x NCHW-contiguous in ``dtype``, one copy; its gradient back in x's
+    layout and dtype, one copy."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = x.dtype
+        return x.to(dtype, memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype, memory_format=torch.channels_last), None
+
+
+def to_nchw(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x.to(dtype)``, NCHW-contiguous: a channels-last ``x`` (``ops.
+    batch_norm.channels_last``) is copied once each way, layout and dtype
+    together, so that a head's kernels read NCHW and the model's gradient
+    comes back channels-last; any other ``x`` takes ``x.to(dtype)``."""
+    dtype = x.dtype if dtype is None else dtype
+    if not channels_last(x):
+        return x.to(dtype)
+    return _ToNchw.apply(x, dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -26,11 +60,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     of the processes in ``process_group``, the mesh's 'data' group once
     ``mesh.shard_variables`` has placed the model (None: every process).
 
-    Train mode with no group goes to ``ops/batch_norm.batch_norm_train``:
-    on the card the hand-written kernels (statistics, normalisation and the
-    running statistics in one launch, the gradient in one more), elsewhere
-    torch's batch norm and a fix-up of its unbiased running variance. Eval
-    mode is torch's own.
+    Train mode with no group goes to ``ops/batch_norm.batch_norm_train``,
+    or for a channels-last ``x`` to ``batch_norm_train_nhwc``: on the card
+    the hand-written kernels for x's layout (statistics, normalisation and
+    the running statistics in one launch, the gradient in one more),
+    elsewhere torch's batch norm and a fix-up of its unbiased running
+    variance. Eval mode is torch's own.
     """
 
     process_group = None
@@ -41,8 +76,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         if mesh.group_active():
             return self._global_forward(x)
         self._check_input_dim(x)
-        return batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
-                                self.num_batches_tracked, self.momentum, self.eps)
+        train = batch_norm_train_nhwc if channels_last(x) else batch_norm_train
+        return train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                     self.num_batches_tracked, self.momentum, self.eps)
 
     def _keep(self):
         """1 - the EMA factor of this update (after num_batches_tracked's

@@ -16,8 +16,9 @@ import torch
 from torch import nn
 
 from margipose_tpu_torch.models.inception import inception_in_cnn
-from margipose_tpu_torch.models.layers import ResidualBlock, init_parameters
+from margipose_tpu_torch.models.layers import ResidualBlock, init_parameters, to_nchw
 from margipose_tpu_torch.models.resnet import RESNET_LAYERS, ResNetStem
+from margipose_tpu_torch.ops.batch_norm import channels_last
 from margipose_tpu_torch.ops.dsnt import average_loss, dsnt, euclidean_losses, flat_softmax
 from margipose_tpu_torch.ops.dsnt_jsd import dsnt_jsd_grouped
 
@@ -44,12 +45,14 @@ class ModelOutput(NamedTuple):
 
 
 def permute_axis(x: torch.Tensor, mode: str) -> torch.Tensor:
-    """The marginal-heatmap axis permutation in NCHW.
+    """The marginal-heatmap axis permutation of [B, C, H, W], in x's layout.
 
     Channels split into groups of ``size`` (the spatial side); within each
     group the channel axis swaps with width ('zy') or height ('xz'). Same
     group/channel order as ``permute_axis_nhwc`` in the JAX package
-    (reference: src/margipose/models/margipose_model.py:84-100).
+    (reference: src/margipose/models/margipose_model.py:84-100). A
+    channels-last ``x`` gives a channels-last result, an NCHW one an
+    NCHW-contiguous result, each in one copy.
     """
     if mode == 'xy':
         return x
@@ -57,6 +60,12 @@ def permute_axis(x: torch.Tensor, mode: str) -> torch.Tensor:
     size = w
     assert h == w, 'axis permutation requires square feature maps'
     assert c % size == 0, 'channel count must divide spatial size'
+    if channels_last(x):
+        # [B, H, W, groups, size]: y's (h, w, g, s) is x's (h, s, g, w) for
+        # 'zy' and (s, w, g, h) for 'xz'
+        x5 = x.permute(0, 2, 3, 1).reshape(b, h, w, c // size, size)
+        x5 = x5.permute(*{'zy': (0, 1, 4, 3, 2), 'xz': (0, 4, 2, 3, 1)}[mode])
+        return x5.contiguous().reshape(b, h, w, c).permute(0, 3, 1, 2)
     x5 = x.reshape(b, c // size, size, h, w)
     if mode == 'zy':  # channel-in-group <-> width
         x5 = x5.permute(0, 1, 4, 3, 2)
@@ -97,7 +106,10 @@ class HeatmapCombiner(nn.Module):
         self.conv = nn.Conv2d(3 * n_joints, 128, 1, bias=False)
 
     def forward(self, xy, zy, xz):
-        return self.conv(torch.cat([xy, zy, xz], 1))
+        x = torch.cat([xy, zy, xz], 1)
+        if channels_last(self.conv.weight):  # the model's layout, not the heatmaps'
+            x = x.contiguous(memory_format=torch.channels_last)
+        return self.conv(x)
 
 
 class MargiPoseModelInner(nn.Module):
@@ -131,8 +143,8 @@ class MargiPoseModelInner(nn.Module):
                 inp = inp + self.hm_combiners[t - 1](*(hms[p][t - 1] for p in PLANES))
             for plane in PLANES:
                 column = getattr(self, f'{plane}_hm_cnns')[t]
-                # softmax in f32, whatever the compute type
-                hms[plane].append(flat_softmax(column(inp).float()))
+                # softmax in f32, whatever the compute type, NCHW
+                hms[plane].append(flat_softmax(to_nchw(column(inp), torch.float32)))
         return ModelOutput(*(tuple(hms[p]) for p in PLANES))
 
 

@@ -199,6 +199,14 @@ KERNELS = {k.symbol: k for k in (
     Kernel("batch_norm", "batch_norm_train_bwd",
            (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
            ("batch_norm_train_bwd_kernel", "batch_norm_train_bwd_apply_kernel")),
+    # channels-last: a split path's partial and finish kernels run beside
+    # its apply kernel, which counts the launch
+    Kernel("batch_norm", "batch_norm_train_nhwc_fwd",
+           (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P),
+           ("batch_norm_train_nhwc_fwd_kernel", "batch_norm_train_nhwc_fwd_apply_kernel")),
+    Kernel("batch_norm", "batch_norm_train_nhwc_bwd",
+           (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+           ("batch_norm_train_nhwc_bwd_kernel", "batch_norm_train_nhwc_bwd_apply_kernel")),
 )}
 
 

@@ -52,7 +52,7 @@ from margipose_tpu_torch.parallel.mesh import (
     average_replicated_gradients,
     group_active,
 )
-from margipose_tpu_torch.parallel.precision import compute_dtype_scope
+from margipose_tpu_torch.parallel.precision import compute_dtype_scope, resolve_dtype
 from margipose_tpu_torch.train.schedules import ScheduledOptimiser
 
 
@@ -104,6 +104,32 @@ def graph_key(train_step, state: TrainState, batch, mesh=None):
     return train_step, optimiser, tuple((k, v.shape, v.dtype, v.device) for k, v in batch.items())
 
 
+def step_memory_format(key, compute_dtype):
+    """The layout a train step runs its model in: channels-last where the
+    step is graphed (``key``, its ``graph_key``, is not None: a batch on the
+    card, no process group, no mesh) and computes in bfloat16, so that
+    cuDNN's NHWC convolutions take the activations as they are and the
+    batch norms run their channels-last kernels; NCHW everywhere else
+    (float32, the CPU, DDP, the hybrid mesh)."""
+    if key is not None and resolve_dtype(compute_dtype) == torch.bfloat16:
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def to_memory_format(state: TrainState, memory_format) -> None:
+    """``state``'s model in ``memory_format`` (its 4-D parameters and
+    buffers, in place: the parameters stay the objects the optimiser
+    holds), and the momentum buffers that exist in their parameters'
+    layout."""
+    state.model.to(memory_format=memory_format)
+    opt_state = state.optimiser.optimiser.state
+    for group in state.optimiser.optimiser.param_groups:
+        for p in group['params']:
+            buf = opt_state.get(p, {}).get('momentum_buffer')
+            if torch.is_tensor(buf) and buf.stride() != p.stride():
+                opt_state[p]['momentum_buffer'] = torch.empty_like(p).copy_(buf)
+
+
 def step_counts(train_step):
     """How ``train_step`` (``make_train_step``'s, or a ``functools.wraps``
     wrapper of it) ran its steps so far: ``eager_steps``, ``captures`` and
@@ -145,7 +171,11 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
     step after it, with the same key, captures the graph and replays it. A
     differing step in between (a short last batch) runs eagerly and leaves
     the graph; ``load_state_dict`` on the optimiser drops it. The eager
-    step is the graph's body. ``train_step.eager_steps``, ``.captures`` and
+    step is the graph's body. A graphed bf16 step runs the model
+    channels-last (``step_memory_format``): the first eager step of a key
+    converts the model and its momentum buffers once, and the graph's
+    static input is channels-last, so the batch's copy into it changes the
+    layout. ``train_step.eager_steps``, ``.captures`` and
     ``.replays`` count the steps each way (a capture step replays once too,
     and counts as a capture). The loss-head kernels' ``launches`` count
     their host launches: one on an eager or capturing step, none on a
@@ -204,7 +234,9 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
 
     def capture(state, batch, key):
         state.graph = None  # its memory pool goes before the next is made
-        inputs = {k: v.clone() for k, v in batch.items()}
+        fmt = step_memory_format(key, compute_dtype)
+        inputs = {k: v.clone(memory_format=fmt) if k == 'input' else v.clone()
+                  for k, v in batch.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=streams[batch['input'].device]):
             loss, xyz = run(state, inputs, state.optimiser.update, capturing=True)
@@ -240,6 +272,7 @@ def make_train_step(pixelwise_loss='jsd', compute_dtype=None, mesh=None):
                     loss, xyz = replay(state, batch)
                 train_step.captures += 1
             else:
+                to_memory_format(state, step_memory_format(key, compute_dtype))
                 loss, xyz = warm(state, batch)
                 state.warmed = key
                 train_step.eager_steps += 1

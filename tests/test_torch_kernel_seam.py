@@ -43,7 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENTRY_POINTS = {
     'dsnt_jsd': ('dsnt_jsd_fwd', 'dsnt_jsd_bwd', 'dsnt_jsd_log_check'),
     'softargmax3d': ('softargmax3d_fwd', 'softargmax3d_bwd'),
-    'batch_norm': ('batch_norm_train_fwd', 'batch_norm_train_bwd'),
+    'batch_norm': ('batch_norm_train_fwd', 'batch_norm_train_bwd', 'batch_norm_train_nhwc_fwd',
+                   'batch_norm_train_nhwc_bwd'),
 }
 STREAM = 0x5EED  # the stand-in current stream's handle
 
@@ -194,6 +195,15 @@ def _batch_norm_on_cpu():
     with pytest.raises(ValueError, match='CUDA device'):
         bn.batch_norm_train_fwd(torch.zeros(2, 3, 4, 4), None, None, torch.zeros(3),
                                 torch.ones(3), torch.zeros((), dtype=torch.long), 0.1, 1e-5)
+    # channels-last: the same plain version
+    cl = x.contiguous(memory_format=torch.channels_last)
+    leaf = cl.clone().requires_grad_()
+    y = bn.batch_norm_train_nhwc(leaf, weight, bias, *stats(), 0.1, 1e-5)
+    assert torch.equal(y, bn.batch_norm_train_plain(cl, weight, bias, *stats(), 0.1, 1e-5))
+    y.sum().backward()
+    with pytest.raises(ValueError, match='CUDA device'):
+        bn.batch_norm_train_nhwc_fwd(cl, None, None, torch.zeros(3), torch.ones(3),
+                                     torch.zeros((), dtype=torch.long), 0.1, 1e-5)
 
 
 CPU_PATHS = {'dsnt_jsd': _dsnt_jsd_on_cpu, 'softargmax3d': _softargmax3d_on_cpu,

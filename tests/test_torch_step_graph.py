@@ -18,7 +18,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from margipose_tpu_torch.models import create_model
-from margipose_tpu_torch.ops import launch_counts, zero_launch_counts
+from margipose_tpu_torch.ops import _build, launch_counts, zero_launch_counts
 from margipose_tpu_torch.train.schedules import make_optimiser
 from margipose_tpu_torch.train import steps
 from margipose_tpu_torch.train.steps import TrainState, make_train_step, step_counts
@@ -173,3 +173,62 @@ def test_a_replay_runs_both_loss_head_kernels_with_no_host_launch(card):
     ran = [e.name() for e in prof.profiler.kineto_results.events()
            if e.device_type() == DeviceType.CUDA]
     assert [sum(f'dsnt_jsd_{way}_kernel' in n for n in ran) for way in ('fwd', 'bwd')] == [5, 5]
+
+
+INTEGRAL_DESC = {'type': 'integral', 'version': '1.0.0',
+                 'settings': {'depth_dim': 8, 'input_size': 64}}
+TRANSPOSES = ('nchwToNhwc', 'nhwcToNchw')
+ATEN_BATCH_NORM = ('batch_norm_collect_statistics', 'batch_norm_backward',
+                   'batch_norm_transform_input')
+
+
+@pytest.mark.cuda
+def test_a_replayed_channels_last_step_equals_an_eager_one_bit_for_bit(card):
+    """bf16: the model and its momentum buffers channels-last from the
+    first step on; four graphed steps and four eager ones give the same
+    losses, parameters, buffers and momentum buffers, bit for bit."""
+    graphed, eager = _states(card)
+    step, eager_step = make_train_step('jsd', torch.bfloat16), make_train_step('jsd', 'bfloat16')
+    got = [step(graphed, _batch(seed, card))['loss'] for seed in range(4)]
+    want = [steps.eager(eager_step, eager, _batch(seed, card))['loss'] for seed in range(4)]
+    assert step_counts(step) == {'eager_steps': 1, 'captures': 1, 'replays': 2}
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    for state in (graphed, eager):
+        convs = [p for p in state.model.parameters() if p.ndim == 4]
+        assert all(p.is_contiguous(memory_format=torch.channels_last) for p in convs)
+        opt = state.optimiser.optimiser.state
+        assert all(opt[p]['momentum_buffer'].stride() == p.stride() for p in convs)
+    sd = [s.model.state_dict() for s in (graphed, eager)]
+    assert [k for k in sd[0] if not torch.equal(sd[0][k], sd[1][k])] == []
+    bufs = [[s.optimiser.optimiser.state[p]['momentum_buffer'] for p in s.model.parameters()]
+            for s in (graphed, eager)]
+    assert all(torch.equal(a, b) for a, b in zip(*bufs))
+    assert graphed.graph.inputs['input'].is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('desc', [DESC, INTEGRAL_DESC], ids=['flagship', 'integral'])
+def test_a_replayed_bf16_step_runs_no_transpose_and_the_channels_last_batch_norms(card, desc):
+    """A replayed bf16 step's device trace: no cuDNN layout transpose, no
+    ATen train-mode batch norm, and each batch norm's channels-last forward
+    and backward once; a float32 step keeps the NCHW kernels."""
+    for precision, fwd, bwd in ((torch.bfloat16, 'batch_norm_train_nhwc_fwd',
+                                 'batch_norm_train_nhwc_bwd'),
+                                (torch.float32, 'batch_norm_train_fwd', 'batch_norm_train_bwd')):
+        model = create_model(desc, generator=torch.Generator().manual_seed(7)).to(card)
+        layers = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+        state = TrainState(model, make_optimiser('1cycle', model.parameters(), 1.0, max_iters=10))
+        step = make_train_step('jsd', precision)
+        for seed in range(2):
+            step(state, _batch(seed, card))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, _batch(2, card))
+            torch.cuda.synchronize()
+        assert step_counts(step) == {'eager_steps': 1, 'captures': 1, 'replays': 1}
+        ran = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        if precision == torch.bfloat16:
+            assert not [n for n in ran if any(w in n for w in TRANSPOSES)]
+        assert not [n for n in ran if any(w in n for w in ATEN_BATCH_NORM)]
+        assert [sum(any(w in n for w in _build.KERNELS[s].traced) for n in ran)
+                for s in (fwd, bwd)] == [layers, layers]
